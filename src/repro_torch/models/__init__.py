@@ -1,0 +1,3 @@
+from .mobilenetv2 import mobilenet_v2, mobilenet_v2_paper, mobilenet_v2_smoke
+
+__all__ = ["mobilenet_v2", "mobilenet_v2_paper", "mobilenet_v2_smoke"]

@@ -1,0 +1,234 @@
+"""The port's kernels against the reference's Pallas kernels.
+
+On the CPU each wrapper takes its plain torch version, which is held here
+against the JAX Pallas kernel run in interpret mode (as ``tests/test_kernels.py``
+runs it): int8 output with the int32 bias is ``array_equal``; the real-domain
+float bias path is within a stated tolerance.  The CUDA kernels themselves
+are held against the plain versions on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.dwconv.ops import dwconv as jax_dwconv
+from repro.kernels.dwconv.ops import dwconv_bands as jax_dwconv_bands
+from repro.kernels.dwconv.ops import dwconv_window as jax_dwconv_window
+from repro.kernels.qgemm.ops import qconv2d as jax_qconv2d
+from repro.kernels.qgemm.ops import qgemm_padded as jax_qgemm
+
+from repro_torch.kernels import backend
+from repro_torch.kernels.dwconv import dwconv as dw_mod
+from repro_torch.kernels.dwconv.dwconv import dwconv3x3, dwconv3x3_bands
+from repro_torch.kernels.dwconv.ops import (dwconv, dwconv_bands,
+                                            dwconv_window)
+from repro_torch.kernels.qgemm.ops import qconv2d, qgemm_padded
+from repro_torch.kernels.qgemm.qgemm import qgemm
+from repro_torch.kernels.qgemm.ref import qgemm_ref
+
+ACTS = (None, "relu", "relu6")
+
+
+def _gemm_inputs(rng, m, k, n, int_bias):
+    x = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    s = (rng.uniform(0.5, 1.5, n) / (127 * 127 * np.sqrt(k))).astype(
+        np.float32)
+    b = (rng.integers(-3000, 3000, n).astype(np.int32) if int_bias
+         else rng.uniform(-1, 1, n).astype(np.float32))
+    return x, w, s, b
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _assert_matches(got, exp, int_bias, out_scale):
+    got, exp = np.asarray(got), np.asarray(exp)
+    assert got.shape == exp.shape and got.dtype == exp.dtype
+    if int_bias:
+        # the int8 contract: exact int32 bias, multiplies only -> bit-exact
+        np.testing.assert_array_equal(got, exp)
+    elif out_scale is not None:
+        # XLA may contract the float bias's mul+add into an FMA, which can
+        # flip a requantization tie by one step
+        assert np.max(np.abs(got.astype(np.int32) - exp.astype(np.int32))) <= 1
+    else:
+        # the same FMA contraction: one rounding of difference
+        np.testing.assert_allclose(got, exp, rtol=1e-6,
+                                   atol=1e-6 * np.abs(exp).max())
+
+
+class TestQGEMMPlain:
+    @pytest.mark.parametrize("out_scale", [None, 0.05])
+    @pytest.mark.parametrize("act", ACTS)
+    @pytest.mark.parametrize("int_bias", [True, False])
+    def test_epilogues_vs_pallas(self, int_bias, act, out_scale):
+        """Every epilogue variant on a shape ragged in M, K and N."""
+        rng = np.random.default_rng(0)
+        x, w, s, b = _gemm_inputs(rng, 37, 200, 72, int_bias)
+        exp = jax_qgemm(x, w, s, b, activation=act, out_scale=out_scale,
+                        interpret=True)
+        got = qgemm_padded(*_t(x, w, s, b), activation=act,
+                           out_scale=out_scale)
+        _assert_matches(got, exp, int_bias, out_scale)
+
+    @pytest.mark.parametrize("m,k,n", [(1, 1280, 100), (8, 1280, 1000),
+                                       (300, 27, 32), (129, 16, 96)])
+    def test_main_path_shapes_vs_pallas(self, m, k, n):
+        """Classifier (M = batch), stem (K = 27) and expand shapes."""
+        rng = np.random.default_rng(m + k + n)
+        x, w, s, b = _gemm_inputs(rng, m, k, n, True)
+        exp = jax_qgemm(x, w, s, b, activation="relu6", out_scale=0.05,
+                        interpret=True)
+        got = qgemm(*_t(x, w, s, b), activation="relu6", out_scale=0.05)
+        _assert_matches(got, exp, True, 0.05)
+
+    def test_int32_accumulation_exact(self):
+        """No epilogue scaling at K=512: the accumulation is exact."""
+        rng = np.random.default_rng(42)
+        x = rng.integers(-127, 128, (128, 512)).astype(np.int8)
+        w = rng.integers(-127, 128, (512, 128)).astype(np.int8)
+        ones = np.ones(128, np.float32)
+        zeros = np.zeros(128, np.int32)
+        got = qgemm(*_t(x, w, ones, zeros)).numpy()
+        np.testing.assert_array_equal(got.astype(np.int64),
+                                      x.astype(np.int64) @ w.astype(np.int64))
+        np.testing.assert_array_equal(
+            got, np.asarray(jax_qgemm(x, w, ones, zeros, interpret=True)))
+
+    @pytest.mark.parametrize("stride", [(1, 1), (2, 2)])
+    def test_qconv2d_vs_pallas(self, stride):
+        rng = np.random.default_rng(3)
+        x = rng.integers(-127, 128, (16, 9, 9)).astype(np.int8)
+        w = rng.integers(-127, 128, (24, 16, 3, 3)).astype(np.int8)
+        s = (rng.uniform(0.5, 1.5, 24) / (127 * 127 * 12)).astype(np.float32)
+        b = rng.integers(-3000, 3000, 24).astype(np.int32)
+        exp = jax_qconv2d(x, w, s, b, stride=stride, padding=(1, 1),
+                          activation="relu6", out_scale=0.05, interpret=True)
+        got = qconv2d(*_t(x, w, s, b), stride=stride, padding=(1, 1),
+                      activation="relu6", out_scale=0.05)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+        # a leading batch axis computes every sample as one
+        both = qconv2d(torch.from_numpy(np.stack([x, x[::-1].copy()])),
+                       *_t(w, s, b), stride=stride, padding=(1, 1),
+                       activation="relu6", out_scale=0.05)
+        np.testing.assert_array_equal(both[0].numpy(), np.asarray(exp))
+
+
+def _dw_inputs(rng, c, int_bias=True):
+    w = rng.integers(-127, 128, (c, 3, 3)).astype(np.int8)
+    s = (rng.uniform(0.5, 1.5, c) / (127 * 127 * 3)).astype(np.float32)
+    b = (rng.integers(-3000, 3000, c).astype(np.int32) if int_bias
+         else rng.uniform(-1, 1, c).astype(np.float32))
+    return w, s, b
+
+
+class TestDWConvPlain:
+    @pytest.mark.parametrize("int_bias", [True, False])
+    @pytest.mark.parametrize("stride", [1, 2])
+    @pytest.mark.parametrize("c,hw", [(8, 16), (19, 12)])
+    def test_single_sample_vs_pallas(self, c, hw, stride, int_bias):
+        rng = np.random.default_rng(c * hw + stride)
+        x = rng.integers(-127, 128, (c, hw, hw)).astype(np.int8)
+        w, s, b = _dw_inputs(rng, c, int_bias)
+        exp = jax_dwconv(x, w, s, b, stride=stride, activation="relu6",
+                         out_scale=0.05, interpret=True)
+        got = dwconv(*_t(x, w, s, b), stride=stride, activation="relu6",
+                     out_scale=0.05)
+        _assert_matches(got, exp, int_bias, 0.05)
+
+    @pytest.mark.parametrize("act", ACTS)
+    def test_float_out_vs_pallas(self, act):
+        rng = np.random.default_rng(5)
+        x = rng.integers(-127, 128, (12, 10, 10)).astype(np.int8)
+        w, s, b = _dw_inputs(rng, 12)
+        exp = jax_dwconv(x, w, s, b, activation=act, interpret=True)
+        got = dwconv(*_t(x, w, s, b), activation=act)
+        _assert_matches(got, exp, True, None)
+
+    @pytest.mark.parametrize("stride", [1, 2])
+    def test_row_window_vs_pallas(self, stride):
+        """One band window (halo rows in place, width padded by 1), VALID
+        over its rows, with a channel count off the reference's block."""
+        rng = np.random.default_rng(20 + stride)
+        c, out_rows, width = 13, 3, 9
+        x = rng.integers(-127, 128, (c, (out_rows - 1) * stride + 3,
+                                     width + 2)).astype(np.int8)
+        w, s, b = _dw_inputs(rng, c)
+        exp = jax_dwconv_window(x, w, s, b, stride=stride, activation="relu6",
+                                out_scale=0.05, interpret=True)
+        got = dwconv_window(*_t(x, w, s, b), stride=stride,
+                            activation="relu6", out_scale=0.05)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+
+    @pytest.mark.parametrize("stride", [1, 2])
+    @pytest.mark.parametrize("bands", [1, 2, 4, 7])
+    def test_band_stack_vs_pallas(self, bands, stride):
+        rng = np.random.default_rng(bands * 10 + stride)
+        c, rows, width = 12, 7, 10
+        x = rng.integers(-127, 128, (bands, c, rows, width + 2)).astype(
+            np.int8)
+        w, s, b = _dw_inputs(rng, c)
+        exp = jax_dwconv_bands(x, w, s, b, stride=stride, activation="relu6",
+                               out_scale=0.05, interpret=True)
+        got = dwconv_bands(*_t(x, w, s, b), stride=stride, activation="relu6",
+                           out_scale=0.05)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+
+
+class TestWrappers:
+    def test_cpu_takes_plain_version_without_launch(self):
+        rng = np.random.default_rng(0)
+        x, w, s, b = _gemm_inputs(rng, 5, 9, 7, True)
+        before = (qgemm.launches, dwconv3x3.launches,
+                  dwconv3x3_bands.launches)
+        got = qgemm(*_t(x, w, s, b), out_scale=0.1)
+        np.testing.assert_array_equal(
+            got.numpy(), qgemm_ref(*_t(x, w, s, b), out_scale=0.1).numpy())
+        xd = torch.zeros((2, 4, 6, 6), dtype=torch.int8)
+        wd, sd, bd = _t(*_dw_inputs(rng, 4))
+        dwconv3x3(xd, wd, sd, bd)
+        dwconv3x3_bands(xd, wd, sd, bd)
+        assert (qgemm.launches, dwconv3x3.launches,
+                dwconv3x3_bands.launches) == before
+
+    def test_other_devices_raise(self):
+        """Neither a kernel nor a plain version runs off cpu and cuda."""
+        x = torch.empty((4, 8), dtype=torch.int8, device="meta")
+        w = torch.empty((8, 3), dtype=torch.int8, device="meta")
+        s = torch.empty(3, dtype=torch.float32, device="meta")
+        b = torch.empty(3, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            qgemm(x, w, s, b)
+        xd = torch.empty((1, 3, 5, 5), dtype=torch.int8, device="meta")
+        wd = torch.empty((3, 3, 3), dtype=torch.int8, device="meta")
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            dwconv3x3_bands(xd, wd, s, b)
+
+    def test_bad_operands_raise(self):
+        x = torch.zeros((4, 8), dtype=torch.int8)
+        w = torch.zeros((9, 3), dtype=torch.int8)
+        s, b = torch.ones(3), torch.zeros(3, dtype=torch.int32)
+        with pytest.raises(ValueError, match="chain"):
+            qgemm(x, w, s, b)
+        with pytest.raises(TypeError):
+            qgemm(x.float(), w[:8], s, b)
+        with pytest.raises(ValueError, match="activation"):
+            qgemm(x, w[:8], s, b, activation="gelu")
+        with pytest.raises(ValueError, match="weight"):
+            dwconv3x3(torch.zeros((3, 5, 5), dtype=torch.int8),
+                      torch.zeros((3, 5, 5), dtype=torch.int8), s, b)
+
+    @pytest.mark.parametrize("c,oh,ow,wp,stride", [
+        (96, 28, 28, 58, 2), (960, 4, 4, 6, 1), (32, 56, 56, 58, 1),
+        (8, 3, 500, 1002, 2)])
+    def test_dwconv_tiles_fit_shared_memory(self, c, oh, ow, wp, stride):
+        rows_tile, c_tile = dw_mod.tiles(c, oh, ow, wp, stride)
+        assert 1 <= rows_tile <= oh and 1 <= c_tile <= c
+        assert c_tile * ((rows_tile - 1) * stride + 3) * wp \
+            <= dw_mod._SMEM_BUDGET
+
+    def test_build_flags_target_hopper(self):
+        assert "arch=compute_90a,code=sm_90a" in backend.NVCC_FLAGS
+        assert set(backend.sources()) == {"qgemm", "dwconv"}
