@@ -20,11 +20,30 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
 4. does the same with a kernel-mode and a neuron-mode plan (the flat
    depthwise and im2col paths);
 5. serves the float model on the card, allclose to the CPU;
-6. prints a JSON line of every kernel: its launches in the three main-path
-   runs, its largest error against its plain version, and the sums over
-   those launches of its time, its bound, and the plain and library times
-   at each launch's shape;
-7. prints ``{"ok": true, "device": {...}}`` as the last line.
+6. the LM serving path, ``qwen3-14b`` at its published width:
+   (a) 2 layers in float32 with TF32 off: prefill and 4 greedy decode
+       steps through the serve steps must give the full forward's
+       last-position logits (rtol 2e-3, atol 2e-4) and the same tokens;
+   (b) all 40 layers in bf16 serve 8 prompts of 2048 tokens: prefill, then
+       32 greedy decode steps, whose attention against the cache is the
+       flash-decode kernel (its counter must equal 32 x 40 launches and the
+       other kernels' 0) and which may make no synchronising call
+       (``torch.cuda.set_sync_debug_mode("error")``); prints prefill ms,
+       decode ms per step and tokens/s beside the step's bound, the card's
+       busy and idle share over the last 2 steps (``torch.profiler``) and
+       the peak memory; logits must be finite;
+   (c) holds flash-decode against its plain version on layer 0's live
+       cache and on one layer's cache at decode_32k's context (S 32768,
+       ragged lengths; not on the path), in bf16 within a tolerance
+       scaled to the output's largest magnitude and again with peaked
+       logits, and times kernel, plain version
+       and ``F.scaled_dot_product_attention`` there, beside the bound;
+   the LM records go to ``chiprun_out/chip_smoke_lm.json``;
+7. prints a JSON line of every kernel: its launches in the main-path runs,
+   its largest error against its plain version, and the sums over those
+   launches of its time, its bound, and the plain and library times at
+   each launch's shape;
+8. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero, as does a machine without CUDA or a
 directory without the repository's ``src``.  Weights are random, made from
@@ -78,23 +97,21 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_trace(fn, iters: int = 1):
-    """Run ``fn`` ``iters`` times under ``torch.profiler`` after one warm
-    call; returns the (name, device microseconds) of every kernel and copy
-    on the card, and the host wall microseconds of the traced calls."""
+def trace_calls(fn, n: int):
+    """Run ``fn`` ``n`` times under the profiler (no warm-up call).
+    Returns (name, device us) of every event on the card, the host wall us
+    of the traced calls, and the last call's result."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
+        for _ in range(n):
+            out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA], wall_us
+            if e.device_type == DeviceType.CUDA], wall_us, out
 
 
 # -- main-path launches -------------------------------------------------------
@@ -153,8 +170,9 @@ def path_launches(engine, batch: int) -> list[tuple[str, str, tuple]]:
 
 # -- phase 2: kernels against their plain versions ---------------------------
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_INT8_OPS_S
+def bound_ms(n_bytes: float, n_ops: float,
+             peak_ops: float = PEAK_INT8_OPS_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -194,10 +212,11 @@ def _operands(kernel, shape, gen, dev, int_bias):
 
 def counters():
     """Each kernel's wrapper, which also holds its launch count."""
+    from repro_torch.kernels.decode_attn.decode_attn import decode_attn
     from repro_torch.kernels.dwconv.dwconv import dwconv3x3, dwconv3x3_bands
     from repro_torch.kernels.qgemm.qgemm import qgemm
     return {"qgemm": qgemm, "dwconv3x3_bands": dwconv3x3_bands,
-            "dwconv3x3": dwconv3x3}
+            "dwconv3x3": dwconv3x3, "decode_attn": decode_attn}
 
 
 def _plain(kernel):
@@ -408,7 +427,8 @@ def profile_batch(sess, xs) -> dict:
     """Where one batch's device time goes: device time per kernel name
     (top ten), the batch's host wall time, and the share of that wall time
     the card sat idle."""
-    events, wall_us = device_trace(lambda: sess.submit_many(xs))
+    sess.submit_many(xs)
+    events, wall_us, _ = trace_calls(lambda: sess.submit_many(xs), 1)
     by_name: dict[str, float] = {}
     for name, us in events:
         by_name[name] = by_name.get(name, 0.0) + us
@@ -435,6 +455,358 @@ def float_path(model, xs, dev):
     if not np.allclose(ys, ys_cpu, rtol=FLOAT_RTOL, atol=atol):
         raise AssertionError(f"float path: max err {err} > {atol}")
     print(f"path {json.dumps(dict(mode='spatial float', max_abs_err=err))}")
+
+
+# -- LM phases: qwen3-14b prefill -> greedy decode ----------------------------
+
+LM_ARCH = "qwen3-14b"
+LM_BATCH, LM_PROMPT, LM_TOKENS = 8, 2048, 32
+LM_PROFILED_STEPS = 2              # the last decode steps, under the profiler
+# prefill + decode against the full forward: tests/test_models.py:65
+LM_RTOL, LM_ATOL = 2e-3, 2e-4
+# flash-decode kernel against its plain version: 1e-5 in float32, as
+# tests/test_kernels.py:118; with a bf16 operand, rtol 2e-2 and an atol of
+# 2e-2 x the plain output's largest magnitude (a few bf16 steps there).  The
+# outputs average v over thousands of slots and are ~0.01, so a fixed 3e-2
+# (tests/test_kernels.py:130) would pass half the right answer.
+DECODE_F32_TOL = 1e-5
+DECODE_BF16_REL = 2e-2
+DECODE_PEAK = 8.0
+# one layer's cache at decode_32k's context (B, S, K, G, hd), bf16, ragged
+YARDSTICK = (8, 32768, 8, 5, 128)
+PEAK_BF16_OPS_S = 989e12
+PEAK_F32_OPS_S = 67e12
+
+
+def lm_check_fp32(dev) -> dict:
+    """Phase (a): qwen3-14b at full width, 2 layers, float32 with TF32 off.
+    Prefill and each of 4 greedy decode steps must give the full (train
+    mode) forward's last-position logits within LM_RTOL/LM_ATOL, and the
+    same greedy token."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import _full_fp32
+    from repro_torch.models import lm
+    from repro_torch.train.serve import make_decode_step, make_prefill_step
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2,
+                              dtype="float32")
+    b, s, n = 2, 16, 4
+    max_seq = s + n + 1
+    errs, tokens = [], []
+    with _full_fp32():
+        params = lm.init_model(cfg, 0, device=dev)
+        rng = np.random.default_rng(1)
+        seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(
+            dev)
+        cache = lm.init_cache(cfg, b, max_seq, device=dev)
+        logits, cache = make_prefill_step(cfg, b, max_seq, device=dev)(
+            params, cache, seq)
+        decode = make_decode_step(cfg, b, max_seq, device=dev)
+        for i in range(n + 1):
+            full = lm.forward(params, {"tokens": seq}, cfg, mode="train")
+            ref = full[:, -1]
+            errs.append(float((logits - ref).abs().max()))
+            if not torch.allclose(logits, ref, rtol=LM_RTOL, atol=LM_ATOL):
+                raise AssertionError(f"fp32 step {i}: cache path differs "
+                                     f"from the full forward by {errs[-1]}")
+            tok = torch.argmax(logits, -1)[:, None]
+            if not torch.equal(tok[:, 0], torch.argmax(ref, -1)):
+                raise AssertionError(f"fp32 step {i}: greedy tokens differ")
+            if i == n:
+                break
+            tokens.append(tok[:, 0].tolist())
+            seq = torch.cat([seq, tok], dim=1)
+            logits, cache = decode(params, cache, tok)
+    del params, cache
+    torch.cuda.empty_cache()
+    rec = dict(phase="a", arch=cfg.name, n_layers=cfg.n_layers,
+               dtype="float32", batch=b, prompt=s, decode_steps=n,
+               max_abs_err=max(errs), rtol=LM_RTOL, atol=LM_ATOL,
+               greedy_tokens=tokens)
+    print(f"lm {json.dumps(rec)}")
+    return rec
+
+
+def _decode_step_bytes(cfg, params_bytes: int, embed_bytes: int,
+                       batch: int, length: int) -> int:
+    """Bytes one decode step must move: every weight but the embedding
+    table read once (the embedding only for the batch's rows), and each
+    layer's K and V read up to ``length`` and one slot of each written."""
+    kv = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2       # bf16 K + V
+    per_row = embed_bytes // cfg.padded_vocab
+    return (params_bytes - embed_bytes + batch * per_row
+            + cfg.n_layers * batch * (length + 1) * kv)
+
+
+def lm_serve(dev) -> tuple[dict, dict]:
+    """Phase (b): qwen3-14b at full width and depth in bf16 (random weights,
+    seed 0) serves LM_BATCH prompts of LM_PROMPT tokens: one prefill, then
+    LM_TOKENS greedy decode steps through the serve steps, the last
+    LM_PROFILED_STEPS of them under the profiler.  Returns the record and
+    layer 0's live cache for phase (c)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.nn.layers import leaves
+    from repro_torch.train.serve import make_decode_step, make_prefill_step
+    cfg = get_config(LM_ARCH)
+    b, s, n = LM_BATCH, LM_PROMPT, LM_TOKENS
+    max_seq = s + n + 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    params_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    embed_bytes = params["embed"].numel() * params["embed"].element_size()
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(
+        dev)
+    cache = lm.init_cache(cfg, b, max_seq, device=dev)
+    prefill = make_prefill_step(cfg, b, max_seq, device=dev)
+    decode = make_decode_step(cfg, b, max_seq, device=dev)
+    prefill(params, cache, prompts)        # warm-up; refilled below
+    torch.cuda.synchronize()
+
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cache, prompts)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    gen, lengths = [torch.argmax(logits, -1)[:, None]], []
+
+    def step():
+        lengths.append(min(cache["pos"] + 1, max_seq))
+        out, _ = decode(params, cache, gen[-1])
+        gen.append(torch.argmax(out, -1)[:, None])
+        return out
+
+    timed = n - LM_PROFILED_STEPS
+    t0 = time.perf_counter()
+    # a decode step must never make the host wait on the card
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(timed):
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    events, wall_us, logits = trace_calls(step, LM_PROFILED_STEPS)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    expect = {name: 0 for name in wrappers}
+    expect["decode_attn"] = n * cfg.n_layers
+    if launches != expect:
+        raise AssertionError(f"LM path launched {launches}, expected "
+                             f"{expect}")
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (
+            b, cfg.padded_vocab):
+        raise AssertionError(f"LM logits {tuple(logits.shape)} not finite")
+    tokens = torch.cat(gen, dim=1).cpu()
+    if tokens.shape != (b, n + 1):
+        raise AssertionError(f"generated {tuple(tokens.shape)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    by_name: dict[str, float] = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
+    busy_us = sum(by_name.values())
+    attn_us = [us for name, us in events if "decode_attn_kernel" in name]
+    if len(attn_us) != LM_PROFILED_STEPS * cfg.n_layers:
+        raise AssertionError(f"profiled {len(attn_us)} decode_attn launches")
+    step_ms = decode_s * 1e3 / timed
+    bound = [_decode_step_bytes(cfg, params_bytes, embed_bytes, b, ln)
+             / PEAK_BYTES_S * 1e3 for ln in lengths[:timed]]
+    nonembed = n_params - params["embed"].numel()
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    prefill_ops = (2.0 * nonembed * b * s
+                   + 4.0 * b * h * hd * s * (s + 1) / 2 * cfg.n_layers)
+    rec = dict(
+        phase="b", arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+        params=n_params, params_gb=params_bytes / 1e9,
+        cache_gb=sum(t.numel() * t.element_size()
+                     for t in leaves(cache["stacks"])) / 1e9,
+        init_s=init_s, batch=b, prompt=s, decode_steps=n, max_seq=max_seq,
+        prefill_ms=prefill_ms,
+        prefill_bound_ms=prefill_ops / PEAK_BF16_OPS_S * 1e3,
+        decode_ms_per_step=step_ms, decode_steps_timed=timed,
+        tokens_per_s=b / step_ms * 1e3,
+        decode_bound_ms_per_step=statistics.mean(bound),
+        decode_bound_by="bytes",
+        profiled_steps=LM_PROFILED_STEPS,
+        profiled_wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+        device_busy_share=busy_us / wall_us,
+        device_idle_share=1 - busy_us / wall_us,
+        device_events=len(events),
+        decode_attn_in_path_ms=statistics.mean(attn_us) / 1e3,
+        top=[dict(name=k[:80], ms=v / 1e3) for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:8]],
+        launches=launches, peak_memory_gb=peak_gb,
+        first_tokens=tokens[0, :8].tolist(), logits_finite=True)
+    print(f"lm {json.dumps(rec)}")
+    blk = cache["stacks"][0]["0_attn"]
+    live = dict(k=blk["k"][0].clone(), v=blk["v"][0].clone(),
+                item=blk["k"].element_size(), pos=cache["pos"],
+                lengths=lengths, cfg=cfg)
+    return rec, live
+
+
+def kernel_device_ms(fn, kernel: str, n: int = 6) -> float:
+    """Mean device ms of ``kernel`` over ``n`` calls of ``fn`` traced by the
+    profiler.  The trace may drop the first launch after it starts (one of
+    five was missing in a run of this script), so it needs n - 1 of them."""
+    fn()
+    events = [us for name, us in trace_calls(fn, n)[0] if kernel in name]
+    if len(events) < n - 1:
+        raise AssertionError(f"profiler saw {len(events)} {kernel} of {n}")
+    return statistics.mean(events) / 1e3
+
+
+def _decode_bound(lens, k_, g, hd, item_q, item_kv) -> tuple[float, str]:
+    """Least time of one flash-decode: K and V read up to each length, q
+    read and the output written once; 4 * G * hd operations per slot."""
+    slots = float(sum(lens)) * k_
+    n_bytes = (2 * slots * hd * item_kv + 2 * len(lens) * k_ * g * hd
+               * item_q + 4 * len(lens))
+    peak = PEAK_BF16_OPS_S if item_kv == 2 else PEAK_F32_OPS_S
+    return bound_ms(n_bytes, 4.0 * slots * g * hd, peak)
+
+
+def decode_attn_case(name, q, ck, cv, lens, on_path) -> dict:
+    """Hold flash-decode against its plain version at one shape (model
+    layout, cache (B, S, K, hd)); time the kernel (profiler and CUDA
+    events), the plain version and the library yardstick
+    ``F.scaled_dot_product_attention(enable_gqa=True)`` on operands laid out
+    for it before timing (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn.ops import (flash_decode,
+                                                     flash_decode_ref)
+    b, _, k_, g, hd = q.shape
+    s = ck.shape[1]
+    got = flash_decode(q, ck, cv, lens)
+    exp = flash_decode_ref(q, ck, cv, lens)
+    torch.cuda.synchronize()
+    err = float((got.float() - exp.float()).abs().max())
+    plain_max = float(exp.float().abs().max())
+    if q.dtype == ck.dtype == torch.float32:
+        rtol = atol = DECODE_F32_TOL
+    else:
+        rtol, atol = DECODE_BF16_REL, DECODE_BF16_REL * plain_max
+    if got.dtype != q.dtype or not torch.allclose(
+            got.float(), exp.float(), rtol=rtol, atol=atol):
+        raise AssertionError(f"decode_attn {name}: max err {err} > "
+                             f"atol {atol} + rtol {rtol} x |plain|")
+    peaked = {}
+    if ck.dtype == torch.bfloat16:
+        # q x DECODE_PEAK: peaked logits, so each output is near one slot's
+        # v (O(1)) rather than an average of thousands
+        qp = (q.float() * DECODE_PEAK).to(q.dtype)
+        gp, ep = (f(qp, ck, cv, lens).float()
+                  for f in (flash_decode, flash_decode_ref))
+        peaked = dict(peaked_max_abs_err=float((gp - ep).abs().max()),
+                      peaked_plain_max_abs=float(ep.abs().max()))
+        if not torch.allclose(gp, ep, rtol=rtol, atol=DECODE_BF16_REL
+                              * peaked["peaked_plain_max_abs"]):
+            raise AssertionError(f"decode_attn {name}, peaked q: {peaked}")
+    # the yardstick's operands: (B, H, 1, hd) and (B, K, S, hd), and the
+    # lengths as a boolean mask
+    qh = q[:, 0].reshape(b, k_ * g, 1, hd).to(ck.dtype)
+    kh = ck.transpose(1, 2).contiguous()
+    vh = cv.transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                         enable_gqa=True)
+    lib_err = float((lib.reshape(got.shape).float() - exp.float()).abs()
+                    .max())
+    lens_host = lens.tolist()
+    rec = dict(kernel="decode_attn", shape=name, on_path=on_path,
+               B=b, S=s, K=k_, G=g, hd=hd, q_dtype=str(q.dtype),
+               cache_dtype=str(ck.dtype),
+               lengths=[min(lens_host), max(lens_host)], max_abs_err=err,
+               plain_max_abs=plain_max, rtol=rtol, atol=atol,
+               device_ms=kernel_device_ms(
+                   lambda: flash_decode(q, ck, cv, lens), "decode_attn_kernel"),
+               event_ms=time_ms(lambda: flash_decode(q, ck, cv, lens), 20),
+               plain_ms=time_ms(lambda: flash_decode_ref(q, ck, cv, lens), 5,
+                                warmup=1),
+               library="F.scaled_dot_product_attention(enable_gqa=True)",
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                   qh, kh, vh, attn_mask=mask, enable_gqa=True), 20),
+               library_max_abs_err=lib_err, **peaked)
+    rec["bound_ms"], rec["bound_by"] = _decode_bound(
+        lens_host, k_, g, hd, q.element_size(), ck.element_size())
+    rec["roofline_share"] = rec["bound_ms"] / (rec["device_ms"] or
+                                               rec["event_ms"])
+    print(f"kernel {json.dumps(rec)}")
+    return rec
+
+
+def lm_kernel_phase(live, dev) -> list[dict]:
+    """Phase (c): flash-decode on layer 0's live cache (bf16 q as the decode
+    path launches it, and f32 q as the example's check) and on the
+    off-path yardstick shape."""
+    import numpy as np
+    import torch
+    cfg = live["cfg"]
+    b, k_, g, hd = (LM_BATCH, cfg.n_kv_heads, cfg.q_groups,
+                    cfg.resolved_head_dim)
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((b, 1, k_, g, hd)).astype(
+        np.float32)).to(dev)
+    lens = torch.full((b,), live["pos"], dtype=torch.int32, device=dev)
+    recs = [decode_attn_case("live cache, layer 0", q.to(live["k"].dtype),
+                             live["k"], live["v"], lens, True),
+            decode_attn_case("live cache, layer 0, f32 q (example check)", q,
+                             live["k"], live["v"], lens, False)]
+    del live["k"], live["v"]
+    yb, ys, yk, yg, yhd = YARDSTICK
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ck, cv = (torch.randn((yb, ys, yk, yhd), generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    yq = torch.randn((yb, 1, yk, yg, yhd), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    ylens = torch.from_numpy(rng.integers(ys // 2, ys + 1, yb).astype(
+        np.int32)).to(dev)
+    recs.append(decode_attn_case("decode_32k yardstick (not on the path)",
+                                 yq, ck, cv, ylens, False))
+    del ck, cv, yq
+    torch.cuda.empty_cache()
+    return recs
+
+
+def decode_attn_line(serve, live, recs) -> dict:
+    """The ``kernels`` entry of decode_attn: launches from the served run's
+    counter; each time the per-launch time at the live shape times the
+    launches; the bound summed over the run's launches at their own
+    lengths."""
+    path = recs[0]
+    n = serve["launches"]["decode_attn"]
+    cfg = live["cfg"]
+    item = live["item"]
+    bound = sum(_decode_bound([ln] * LM_BATCH, cfg.n_kv_heads,
+                              cfg.q_groups, cfg.resolved_head_dim, item,
+                              item)[0]
+                for ln in live["lengths"]) * cfg.n_layers
+    ms_from = "profiler" if path["device_ms"] is not None else "events"
+    return dict(
+        name="decode_attn", route="cuda",
+        source="src/repro_torch/csrc/decode_attn.cu",
+        replaces="src/repro/kernels/decode_attn/decode_attn.py:63",
+        launches=n, max_abs_err=max(r["max_abs_err"] for r in recs),
+        ms=n * (path["device_ms"] or path["event_ms"]),
+        plain_ms=n * path["plain_ms"], bound_ms=bound, bound_by="bytes",
+        library_ms=n * path["library_ms"], ms_from=ms_from,
+        in_path_ms=n * serve["decode_attn_in_path_ms"],
+        launches_by_path={"lm_decode": n})
 
 
 def main() -> int:
@@ -492,8 +864,19 @@ def main() -> int:
     for mode in modes:
         expect = {k: sum(1 for kk, _, _ in plan_launches[mode] if kk == k)
                   for k in names}
+        expect["decode_attn"] = 0
         paths.append(serve_path(mode, model, qmodel, xs, dev, expect))
     float_path(model, xs, dev)
+
+    # the LM serving path: (a) fp32 check, (b) bf16 run at full depth,
+    # (c) the flash-decode kernel on the live cache and a yardstick shape
+    torch.cuda.empty_cache()
+    lm_check_fp32(dev)
+    serve, live = lm_serve(dev)
+    torch.cuda.empty_cache()
+    attn_recs = lm_kernel_phase(live, dev)
+    (out_dir / "chip_smoke_lm.json").write_text(json.dumps(
+        dict(card=card, serve=serve, decode_attn=attn_recs), indent=1))
 
     source = {"qgemm": "src/repro_torch/csrc/qgemm.cu",
               "dwconv3x3_bands": "src/repro_torch/csrc/dwconv.cu",
@@ -528,6 +911,7 @@ def main() -> int:
             ms_from="profiler" if all(r["device_ms"] is not None
                                       for r in rows) else "events",
             launches_by_path={p["mode"]: p["launches"][name] for p in paths}))
+    line.append(decode_attn_line(serve, live, attn_recs))
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

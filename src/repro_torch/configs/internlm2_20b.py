@@ -1,0 +1,8 @@
+"""internlm2-20b [arXiv:2403.17297]: dense, GQA kv=8."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-20b", family="dense",
+    n_layers=48, d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
+    d_ff=16384, vocab_size=92544, rope_theta=1e6,
+)

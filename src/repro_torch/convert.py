@@ -7,13 +7,24 @@ scales come from the reference's float calibration.  These functions take
 the reference's ``ReinterpretedModel`` / ``QuantizedModel`` as plain
 numpy arrays and per-layer fields and build the port's objects from them.
 They duck-type their input and import nothing of ``repro``.
+
+The LM converters do the same for a reference LM's parameter tree and KV
+cache, given as nested dicts and lists of arrays (numpy, or anything
+``np.asarray`` takes, bf16 included), so that tests run both packages on
+the same weights and cache.
 """
 from __future__ import annotations
 
-import numpy as np
+from collections.abc import Mapping
 
+import numpy as np
+import torch
+
+from .core.executor import resolve_device
 from .core.quantize import QuantizedLayer, QuantizedModel
 from .core.reinterpret import LayerSpec, ReinterpretedModel
+from .models import lm
+from .nn.layers import torch_dtype
 
 
 def _arr(a):
@@ -54,3 +65,62 @@ def convert_qmodel(ref_qmodel, model: ReinterpretedModel | None = None
                              float(ql.in_scale), float(ql.out_scale))
               for ql in ref_qmodel.layers]
     return QuantizedModel(model, layers, float(ref_qmodel.input_scale))
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    """An array as a tensor on ``device``; numpy's bfloat16 (ml_dtypes, as
+    JAX hands it out) goes across bit for bit."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def convert_lm_params(tree, cfg, device=None) -> dict:
+    """The port's params for ``cfg`` from a reference LM's parameter tree
+    (``lm.init_model``'s dict/list structure, leaves as arrays), cast to
+    ``cfg.dtype`` on ``device`` (CUDA unless the caller asks for the CPU).
+    Raises if the tree's keys or shapes differ from ``lm.model_defs``."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+
+    def walk(defs, node, path):
+        if isinstance(defs, dict):
+            keys = sorted(node) if isinstance(node, Mapping) else None
+            if keys != sorted(defs):
+                raise ValueError(f"{path or '/'}: keys {keys} are not "
+                                 f"{sorted(defs)}")
+            return {k: walk(defs[k], node[k], f"{path}/{k}") for k in defs}
+        if isinstance(defs, list):
+            if len(node) != len(defs):
+                raise ValueError(f"{path}: {len(node)} stacks, not "
+                                 f"{len(defs)}")
+            return [walk(d, n, f"{path}/{i}")
+                    for i, (d, n) in enumerate(zip(defs, node))]
+        t = _tensor(node, dev, dtype)
+        if tuple(t.shape) != defs.shape:
+            raise ValueError(f"{path}: shape {tuple(t.shape)}, the model "
+                             f"wants {defs.shape}")
+        return t
+
+    return walk(lm.model_defs(cfg), tree, "")
+
+
+def convert_lm_cache(ref_cache, device=None) -> dict:
+    """The port's KV cache from a reference one (``{"pos", "stacks"}``):
+    ``pos`` as a host int, every array as a tensor of its own dtype on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _tensor(node, dev)
+
+    return {"pos": int(np.asarray(ref_cache["pos"])),
+            "stacks": walk(ref_cache["stacks"])}

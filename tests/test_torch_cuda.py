@@ -5,7 +5,12 @@ them with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.  The file
 imports nothing of JAX, so it runs where only torch is installed.  Each CUDA
 kernel is held against its plain torch version on the same card tensors
 (int8 output bit-exact), and the engine's int8 output on the card against
-the CPU's, bit for bit.
+the CPU's, bit for bit.  The flash-decode kernel is held against its
+plain version at 1e-5 in float32 and, with a bf16 operand, at rtol 2e-2 and
+an atol of 2e-2 x the plain output's largest magnitude: its outputs average
+v over hundreds of slots and are small, so a fixed atol as large as them
+would pass a wrong answer.  The LM's decode on the card, which attends
+through it, is held against the CPU's.
 """
 import numpy as np
 import pytest
@@ -13,11 +18,15 @@ import torch
 
 import repro_torch.core as T
 from repro_torch.api import Session
+from repro_torch.configs import get_config
+from repro_torch.kernels.decode_attn.decode_attn import decode_attn
+from repro_torch.kernels.decode_attn.ops import flash_decode, flash_decode_ref
 from repro_torch.kernels.dwconv.dwconv import dwconv3x3, dwconv3x3_bands
 from repro_torch.kernels.dwconv.ref import dwconv3x3_ref
 from repro_torch.kernels.qgemm.qgemm import qgemm
 from repro_torch.kernels.qgemm.ref import qgemm_ref
-from repro_torch.models import mobilenet_v2_smoke
+from repro_torch.models import lm, mobilenet_v2_smoke
+from repro_torch.nn.layers import map_defs
 
 pytestmark = pytest.mark.cuda
 ACTS = (None, "relu", "relu6")
@@ -124,3 +133,128 @@ def test_session_on_card_equals_cpu(cuda, mode):
     gpu = Session(plan, qmodel=cpu.qmodel, device=cuda, max_batch=4)
     np.testing.assert_array_equal(gpu.submit_many(xs), cpu.submit_many(xs))
     assert qgemm.launches > before
+
+
+def _decode_inputs(rng, b, k, g, hd, s, dev, q_dtype, kv_dtype):
+    q = torch.from_numpy(rng.standard_normal((b, 1, k, g, hd)).astype(
+        np.float32)).to(dev, q_dtype)
+    ck, cv = (torch.from_numpy(rng.standard_normal((b, s, k, hd)).astype(
+        np.float32)).to(dev, kv_dtype) for _ in range(2))
+    lens = torch.from_numpy(rng.integers(s // 2, s + 1, b).astype(
+        np.int32)).to(dev)
+    return q, ck, cv, lens
+
+
+def _assert_decode_close(got, exp, q_dt, kv_dt):
+    if q_dt == kv_dt == torch.float32:
+        rtol = atol = 1e-5
+    else:
+        rtol, atol = 2e-2, 2e-2 * float(exp.float().abs().max())
+    torch.testing.assert_close(got.float(), exp.float(), rtol=rtol,
+                               atol=atol)
+
+
+DECODE_DTYPES = {"f32": (torch.float32, torch.float32),
+                 "bf16": (torch.bfloat16, torch.bfloat16),
+                 "f32/bf16": (torch.float32, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("dtypes", list(DECODE_DTYPES))
+@pytest.mark.parametrize("b,k,g,hd,s", [
+    (2, 4, 5, 64, 1024), (1, 8, 1, 128, 512), (3, 2, 8, 32, 768),
+    (2, 1, 16, 64, 640), (8, 8, 5, 128, 2081), (1, 1, 4, 256, 77),
+    (2, 2, 2, 16, 45), (3, 1, 7, 8, 300)])
+def test_decode_attn_vs_plain(cuda, b, k, g, hd, s, dtypes):
+    """The four shapes of the reference's tests, the qwen3-14b live cache
+    (ragged S = 2081), the smoke configs' hd 16, and hd 256 and 8, each in
+    the three dtype pairs, read in the model's (B, S, K, hd) layout through
+    strides."""
+    q_dt, kv_dt = DECODE_DTYPES[dtypes]
+    args = _decode_inputs(np.random.default_rng(b * s + g), b, k, g, hd, s,
+                          cuda, q_dt, kv_dt)
+    before = decode_attn.launches
+    got = flash_decode(*args)
+    assert decode_attn.launches == before + 1
+    exp = flash_decode_ref(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dt and got.shape == exp.shape
+    _assert_decode_close(got, exp, q_dt, kv_dt)
+
+
+@pytest.mark.parametrize("dtypes", ["bf16", "f32/bf16"])
+def test_decode_attn_peaked_vs_plain(cuda, dtypes):
+    """q scaled by 8: the logits are peaked, so each output lies near one
+    slot's v (O(1)) instead of an average of ~0.01 over the whole cache."""
+    q_dt, kv_dt = DECODE_DTYPES[dtypes]
+    q, ck, cv, lens = _decode_inputs(np.random.default_rng(11), 8, 8, 5,
+                                     128, 2081, cuda, q_dt, kv_dt)
+    q = (q.float() * 8.0).to(q_dt)
+    got = flash_decode(q, ck, cv, lens)
+    exp = flash_decode_ref(q, ck, cv, lens)
+    assert float(exp.float().abs().max()) > 1.0
+    _assert_decode_close(got, exp, q_dt, kv_dt)
+
+
+def test_decode_attn_masks_past_lengths(cuda):
+    rng = np.random.default_rng(5)
+    q, ck, cv, _ = _decode_inputs(rng, 2, 2, 2, 32, 256, cuda,
+                                  torch.float32, torch.float32)
+    lens = torch.tensor([100, 1], dtype=torch.int32, device=cuda)
+    out1 = flash_decode(q, ck, cv, lens, block_s=64)
+    ck[:, 100:], cv[:, 100:] = 99.0, -99.0
+    ck[1, 1:], cv[1, 1:] = 99.0, -99.0
+    out2 = flash_decode(q, ck, cv, lens, block_s=64)
+    torch.testing.assert_close(out1, out2, rtol=1e-6, atol=1e-6)
+    # one valid slot: the output is that slot's v
+    torch.testing.assert_close(out2[1, 0], cv[1, 0][:, None].expand(2, 2, 32),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_lm_decode_on_card_equals_cpu(cuda):
+    """qwen3-14b-smoke in float32: prefill and four greedy decode steps on
+    the card (attention against the cache through the kernel, one launch
+    per layer and step) against the same model on the CPU."""
+    cfg = get_config("qwen3-14b-smoke")
+    params = lm.init_model(cfg, 0, device="cpu")
+    gpu_params = map_defs(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12)))
+    caches = {d: lm.init_cache(cfg, 2, 20, device=d) for d in ("cpu", cuda)}
+    ps = {"cpu": params, cuda: gpu_params}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {d: lm.forward(ps[d], {"tokens": toks.to(d)}, cfg, "prefill",
+                             caches[d])[0] for d in ps}
+        before = decode_attn.launches
+        for _ in range(4):
+            tok = torch.argmax(out["cpu"], -1)[:, None]
+            assert torch.equal(torch.argmax(out[cuda], -1).cpu(), tok[:, 0])
+            out = {d: lm.forward(ps[d], {"tokens": tok.to(d)}, cfg, "decode",
+                                 caches[d])[0] for d in ps}
+            torch.testing.assert_close(out[cuda].cpu(), out["cpu"],
+                                       rtol=1e-4, atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert decode_attn.launches == before + 4 * cfg.n_layers
+
+
+def test_lm_decode_step_never_waits_on_the_card(cuda):
+    """The position counter lives on the host: a decode step issues no
+    synchronising call (``set_sync_debug_mode`` raises on one)."""
+    cfg = get_config("qwen2.5-32b-smoke")
+    params = lm.init_model(cfg, 0, device=cuda)
+    cache = lm.init_cache(cfg, 2, 16, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), device=cuda)
+    logits, cache = lm.forward(params, {"tokens": toks}, cfg, "prefill", cache)
+    tok = torch.argmax(logits, -1)[:, None]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            logits, cache = lm.forward(params, {"tokens": tok}, cfg, "decode",
+                                       cache)
+            tok = torch.argmax(logits, -1)[:, None]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cache["pos"] == 11 and bool(torch.isfinite(logits).all())

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the reference package ``repro``."""
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and not the port's examples (``examples/torch``) import
+JAX or the reference package ``repro``."""
 import ast
 import os
 import shutil
@@ -11,7 +12,14 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples" / "torch").glob("*.py")))
+# the LM slice's modules, named so that a missing one fails here
+LM_SLICE = ("configs/base.py", "configs/__init__.py", "configs/qwen3_14b.py",
+            "nn/layers.py", "nn/attention.py", "models/lm.py",
+            "train/serve.py", "kernels/decode_attn/ref.py",
+            "kernels/decode_attn/decode_attn.py",
+            "kernels/decode_attn/ops.py", "convert.py")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -62,3 +70,10 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                           capture_output=True, text=True)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("rel", LM_SLICE)
+def test_lm_slice_module_present_and_clean(rel):
+    path = PORT / rel
+    assert path in FILES
+    assert not _imported_roots(path) & set(FORBIDDEN)

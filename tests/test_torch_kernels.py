@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.decode_attn.ops import flash_decode as jax_flash_decode
+from repro.kernels.decode_attn.ops import \
+    flash_decode_ref as jax_flash_decode_ref
 from repro.kernels.dwconv.ops import dwconv as jax_dwconv
 from repro.kernels.dwconv.ops import dwconv_bands as jax_dwconv_bands
 from repro.kernels.dwconv.ops import dwconv_window as jax_dwconv_window
@@ -18,6 +21,9 @@ from repro.kernels.qgemm.ops import qconv2d as jax_qconv2d
 from repro.kernels.qgemm.ops import qgemm_padded as jax_qgemm
 
 from repro_torch.kernels import backend
+from repro_torch.kernels.decode_attn.decode_attn import decode_attn
+from repro_torch.kernels.decode_attn.ops import flash_decode, flash_decode_ref
+from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 from repro_torch.kernels.dwconv import dwconv as dw_mod
 from repro_torch.kernels.dwconv.dwconv import dwconv3x3, dwconv3x3_bands
 from repro_torch.kernels.dwconv.ops import (dwconv, dwconv_bands,
@@ -231,4 +237,115 @@ class TestWrappers:
 
     def test_build_flags_target_hopper(self):
         assert "arch=compute_90a,code=sm_90a" in backend.NVCC_FLAGS
-        assert set(backend.sources()) == {"qgemm", "dwconv"}
+        assert set(backend.sources()) == {"qgemm", "dwconv", "decode_attn"}
+
+
+class TestDecodeAttnPlain:
+    """The port's flash-decode on the CPU (its plain version) against the
+    reference's Pallas kernel in interpret mode, with the tolerances of
+    ``tests/test_kernels.py::TestDecodeAttn``: both sum float32 products in
+    other orders; in bf16 the Pallas kernel also casts p to bf16 before the
+    PV product, which the plain version does not."""
+
+    @pytest.mark.parametrize("b,k,g,hd,s,bs", [
+        (2, 4, 5, 64, 1024, 256),
+        (1, 8, 1, 128, 512, 512),
+        (3, 2, 8, 32, 768, 128),
+        (2, 1, 16, 64, 640, 128),
+    ])
+    def test_sweep_vs_pallas(self, b, k, g, hd, s, bs):
+        rng = np.random.default_rng(b * 1000 + s)
+        q = rng.standard_normal((b, 1, k, g, hd)).astype(np.float32)
+        ck = rng.standard_normal((b, s, k, hd)).astype(np.float32)
+        cv = rng.standard_normal((b, s, k, hd)).astype(np.float32)
+        lens = rng.integers(s // 2, s + 1, b).astype(np.int32)
+        exp = np.asarray(jax_flash_decode(q, ck, cv, lens, block_s=bs))
+        before = decode_attn.launches
+        got = flash_decode(*_t(q, ck, cv, lens), block_s=bs)
+        assert decode_attn.launches == before    # no kernel on the CPU
+        assert got.shape == (b, 1, k, g, hd) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=2e-5)
+        np.testing.assert_allclose(
+            flash_decode_ref(*_t(q, ck, cv, lens)).numpy(),
+            np.asarray(jax_flash_decode_ref(q, ck, cv, lens)), rtol=1e-5,
+            atol=2e-5)
+
+    def test_bf16_dtype(self):
+        import jax.numpy as jnp
+        rng = np.random.default_rng(1)
+        b, k, g, hd, s = 2, 2, 4, 64, 512
+        arrs = [rng.standard_normal(shape).astype(np.float32) for shape in
+                ((b, 1, k, g, hd), (b, s, k, hd), (b, s, k, hd))]
+        lens = np.full(b, s, np.int32)
+        exp = np.asarray(jax_flash_decode(
+            *(jnp.asarray(a, jnp.bfloat16) for a in arrs), lens,
+            block_s=128), np.float32)
+        tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in arrs)
+        got = flash_decode(tq, tk, tv, torch.from_numpy(lens), block_s=128)
+        assert got.dtype == torch.bfloat16
+        # outputs average v over 512 slots and are ~0.1: the atol is scaled
+        # to their largest magnitude, a few bf16 steps there
+        np.testing.assert_allclose(got.float().numpy(), exp, rtol=2e-2,
+                                   atol=2e-2 * np.abs(exp).max())
+
+    def test_length_masking(self):
+        """Slots beyond ``lengths`` must not influence the output, and the
+        port agrees with the Pallas kernel on a ragged S (no padding to
+        ``block_s``)."""
+        rng = np.random.default_rng(2)
+        b, k, g, hd, s = 1, 2, 2, 32, 256
+        q = rng.standard_normal((b, 1, k, g, hd)).astype(np.float32)
+        ck = rng.standard_normal((b, s, k, hd)).astype(np.float32)
+        cv = rng.standard_normal((b, s, k, hd)).astype(np.float32)
+        lens = np.array([100], np.int32)
+        out1 = flash_decode(*_t(q, ck, cv, lens), block_s=64).numpy()
+        ck2, cv2 = ck.copy(), cv.copy()
+        ck2[:, 100:] = 99.0
+        cv2[:, 100:] = -99.0
+        out2 = flash_decode(*_t(q, ck2, cv2, lens), block_s=64).numpy()
+        np.testing.assert_allclose(out1, out2, rtol=1e-6, atol=1e-6)
+        ragged = flash_decode(*_t(q, ck[:, :230], cv[:, :230], lens),
+                              block_s=64).numpy()
+        np.testing.assert_allclose(ragged, np.asarray(jax_flash_decode(
+            q, ck[:, :230], cv[:, :230], lens, block_s=64)), rtol=1e-5,
+            atol=2e-5)
+
+    def test_mixed_q_f32_cache_bf16(self):
+        """(f32 q, bf16 cache), the third pair the kernel takes: output in
+        q's dtype, equal to the plain version on float32 copies."""
+        rng = np.random.default_rng(3)
+        q = torch.from_numpy(rng.standard_normal((2, 1, 2, 5, 64)).astype(
+            np.float32))
+        ck, cv = (torch.from_numpy(rng.standard_normal((2, 40, 2, 64))
+                                   .astype(np.float32)).bfloat16()
+                  for _ in range(2))
+        lens = torch.tensor([40, 17], dtype=torch.int32)
+        got = flash_decode(q, ck, cv, lens)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, flash_decode(q, ck.float(),
+                                                     cv.float(), lens))
+
+    def test_contract_checks(self):
+        q = torch.zeros((1, 2, 3, 32))
+        k = torch.zeros((1, 2, 16, 32))
+        lens = torch.full((1,), 16, dtype=torch.int32)
+        for bad in (0, -512, 1.5, True):
+            with pytest.raises(ValueError, match="block_s"):
+                decode_attn(q, k, k, lens, block_s=bad)
+        with pytest.raises(ValueError, match="int32"):
+            decode_attn(q, k, k, lens.long())
+        with pytest.raises(TypeError, match="dtypes"):
+            decode_attn(q.bfloat16(), k, k, lens)
+        with pytest.raises(ValueError, match="disagree"):
+            decode_attn(q, k[..., :16], k[..., :16], lens)
+        meta = [t.to("meta") for t in (q, k, k, lens)]
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            decode_attn(*meta)
+        # the plain version takes any strides: a transposed cache view
+        cache = torch.randn((1, 16, 2, 32))
+        np.testing.assert_allclose(
+            decode_attn(q, cache.transpose(1, 2), cache.transpose(1, 2),
+                        lens).numpy(),
+            decode_attn_ref(q, cache.transpose(1, 2).contiguous(),
+                            cache.transpose(1, 2).contiguous(),
+                            lens).numpy(), rtol=1e-6, atol=1e-6)
