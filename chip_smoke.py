@@ -10,13 +10,16 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
    (``path_launches``), holds each kernel against its plain torch version on
    the card at every distinct shape of those launches (int8 output
    bit-exact, float32 output within the tolerance below), and times kernel
-   (profiler device time and CUDA events), plain version and a library call
-   there; all shapes go to ``chiprun_out/chip_smoke_shapes.json``;
+   (profiler device time, summed over every kernel a wrapper enqueues for
+   one launch, and CUDA events), plain version and a library call there;
+   prints each shape's schedule (tile, splits, grid) beside its time; all
+   shapes go to ``chiprun_out/chip_smoke_shapes.json``;
 3. serves int8 MobileNetV2 at the paper's full width (112x112x3, 1000
    classes, 54 layers) split spatially across 8 workers of unequal ratings
    through ``Session.submit_many`` on the card, and requires the output to
-   equal a CPU session of the port bit for bit and the wrappers' launch
-   counters to equal the launches listed for the plan;
+   equal a CPU session of the port bit for bit, the wrappers' launch
+   counters to equal the launches listed for the plan, and no weight to be
+   copied into the kernel's layout (``qgemm.weight_copies`` 0);
 4. does the same with a kernel-mode and a neuron-mode plan (the flat
    depthwise and im2col paths);
 5. serves the float model on the card, allclose to the CPU;
@@ -36,8 +39,9 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
        cache and on one layer's cache at decode_32k's context (S 32768,
        ragged lengths; not on the path), in bf16 within a tolerance
        scaled to the output's largest magnitude and again with peaked
-       logits, and times kernel, plain version
-       and ``F.scaled_dot_product_attention`` there, beside the bound;
+       logits, and times kernel (its split and merge kernels), plain
+       version and ``F.scaled_dot_product_attention`` there, beside the
+       bound and its schedule;
    the LM records go to ``chiprun_out/chip_smoke_lm.json``;
 7. prints a JSON line of every kernel: its launches in the main-path runs,
    its largest error against its plain version, and the sums over those
@@ -186,8 +190,9 @@ def _operands(kernel, shape, gen, dev, int_bias):
         m, k, n = shape
         x = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
                           dtype=torch.int8)
-        w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
-                          dtype=torch.int8)
+        # stored (N, K) and passed as its (K, N) view, as the engine does
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8).t()
         n_ch, fan_in = n, k
         kw = {}
     else:
@@ -237,14 +242,34 @@ def _library(kernel, args, kw):
         m, k = x.shape
         n = w.shape[1]
         if m > 16 and k % 8 == 0 and n % 8 == 0:
-            wt = w.t().contiguous().t()     # column-major, as cuBLASLt wants
-            return "torch._int_mm", lambda: torch._int_mm(x, wt)
+            # w is column-major already, as cuBLASLt wants
+            return "torch._int_mm", lambda: torch._int_mm(x, w)
         # exact here: every |sum| < 1280 * 127^2 < 2^24
         xf, wf = x.float(), w.float()
         return "torch.matmul f32", lambda: torch.matmul(xf, wf)
     xf, wf = x.float(), w.float()[:, None]
     return "F.conv2d f32", lambda: F.conv2d(xf, wf, stride=kw["stride"],
                                             groups=x.shape[1])
+
+
+def schedule(kernel, shape) -> dict:
+    """The grid a wrapper launches at ``shape``: its split choice and tile
+    (``qgemm_schedule``), or the depthwise kernel's tiles."""
+    import torch
+    from repro_torch.kernels import backend
+    n_sm = backend.sm_count(torch.device("cuda", 0))
+    if kernel == "qgemm":
+        from repro_torch.kernels.qgemm.qgemm import BN, qgemm_schedule
+        m, k, n = shape
+        bm, splits, k_chunk = qgemm_schedule(m, n, k, n_sm)
+        return dict(tile=[bm, BN], splits=splits, k_chunk=k_chunk,
+                    grid=[-(-m // bm), -(-n // BN), splits])
+    from repro_torch.kernels.dwconv.dwconv import tiles
+    nb, c, r, wp, stride = shape
+    oh, ow = (r - 3) // stride + 1, (wp - 3) // stride + 1
+    rows_tile, c_tile = tiles(c, oh, ow, wp, stride)
+    return dict(rows_tile=rows_tile, c_tile=c_tile,
+                grid=[nb, -(-c // c_tile), -(-oh // rows_tile)])
 
 
 def check_launch(kernel, shape, gen, dev) -> tuple[dict, tuple]:
@@ -276,19 +301,24 @@ def check_launch(kernel, shape, gen, dev) -> tuple[dict, tuple]:
     rec = dict(kernel=kernel, shape=list(shape), max_abs_err=max(err, ferr),
                event_ms=time_ms(lambda: fn(*args, **kw), 20),
                plain_ms=time_ms(lambda: plain(*args, **kw), 5, warmup=1),
-               library=lib_name, library_ms=time_ms(lib, 20))
+               library=lib_name, library_ms=time_ms(lib, 20),
+               schedule=schedule(kernel, shape))
     rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, n_ops)
     return rec, (fn, args, kw)
 
 
-OUR_KERNELS = ("qgemm_kernel", "dwconv3x3_kernel")    # names in csrc/*.cu
+# name prefixes of the kernels in csrc/*.cu: every kernel a wrapper
+# enqueues starts with its wrapper's name
+OUR_KERNELS = ("qgemm_", "dwconv3x3_", "decode_attn_")
 
 
 def trace_device_ms(kernel_calls, per_shape: int = 5) -> list[float | None]:
     """Device ms of one launch of each (wrapper, operands, options) in
     ``kernel_calls``: one profiler trace of ``per_shape`` launches each,
-    split in launch order.  None for all when the trace does not hold
-    exactly one of this repository's kernels per launch."""
+    split in launch order; a launch's time is the sum of the
+    ``kernels_per_launch`` kernels its wrapper enqueues.  None for all when
+    the trace does not hold exactly that many of this repository's kernels
+    per launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -302,12 +332,17 @@ def trace_device_ms(kernel_calls, per_shape: int = 5) -> list[float | None]:
                   for e in prof.events()
                   if e.device_type == DeviceType.CUDA
                   and any(k in e.name for k in OUR_KERNELS))
-    if len(ours) != per_shape * len(kernel_calls):
-        print(f"device trace: {len(ours)} kernel events for "
-              f"{per_shape * len(kernel_calls)} launches; no device times")
+    counts = [per_shape * fn.kernels_per_launch for fn, _, _ in kernel_calls]
+    if len(ours) != sum(counts):
+        print(f"device trace: {len(ours)} kernel events for {sum(counts)} "
+              f"kernels of {per_shape * len(kernel_calls)} launches; no "
+              f"device times")
         return [None] * len(kernel_calls)
-    return [sum(us for _, us in ours[j * per_shape:(j + 1) * per_shape])
-            / per_shape / 1e3 for j in range(len(kernel_calls))]
+    out, i = [], 0
+    for c in counts:
+        out.append(sum(us for _, us in ours[i:i + c]) / per_shape / 1e3)
+        i += c
+    return out
 
 
 # whole-layer launches the main path does not make (it splits both layers
@@ -386,8 +421,12 @@ def serve_path(mode, model, qmodel, xs, dev, expect):
     wrappers = counters()
     for fn in wrappers.values():
         fn.launches = 0
+    wrappers["qgemm"].weight_copies = 0
     ys = sess.submit_many(xs)
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    if wrappers["qgemm"].weight_copies:
+        raise AssertionError(f"{mode} path copied "
+                             f"{wrappers['qgemm'].weight_copies} weights")
     if launches != expect:
         raise AssertionError(f"{mode} path launched {launches}, its plan "
                              f"counts {expect}")
@@ -415,7 +454,11 @@ def serve_path(mode, model, qmodel, xs, dev, expect):
         t0 = time.perf_counter()
         sess.run(x)
         one_ms.append((time.perf_counter() - t0) * 1e3)
+    if wrappers["qgemm"].weight_copies:
+        raise AssertionError(f"{mode} path copied "
+                             f"{wrappers['qgemm'].weight_copies} weights")
     rec = dict(mode=mode, launches=launches, bit_exact_vs_cpu=True,
+               weight_copies=0,
                ms_per_request_batch8=statistics.median(batch_ms),
                ms_request_batch1=statistics.median(one_ms),
                batch8_profile=profile_batch(sess, xs))
@@ -618,9 +661,13 @@ def lm_serve(dev) -> tuple[dict, dict]:
     for name, us in events:
         by_name[name] = by_name.get(name, 0.0) + us
     busy_us = sum(by_name.values())
-    attn_us = [us for name, us in events if "decode_attn_kernel" in name]
-    if len(attn_us) != LM_PROFILED_STEPS * cfg.n_layers:
-        raise AssertionError(f"profiled {len(attn_us)} decode_attn launches")
+    # every kernel of the wrapper's launches: split and merge
+    attn_us = [us for name, us in events if "decode_attn_" in name]
+    kpl = wrappers["decode_attn"].kernels_per_launch
+    if len(attn_us) != LM_PROFILED_STEPS * cfg.n_layers * kpl:
+        raise AssertionError(f"profiled {len(attn_us)} decode_attn kernels "
+                             f"for {LM_PROFILED_STEPS * cfg.n_layers} "
+                             f"launches")
     step_ms = decode_s * 1e3 / timed
     bound = [_decode_step_bytes(cfg, params_bytes, embed_bytes, b, ln)
              / PEAK_BYTES_S * 1e3 for ln in lengths[:timed]]
@@ -645,7 +692,8 @@ def lm_serve(dev) -> tuple[dict, dict]:
         device_busy_share=busy_us / wall_us,
         device_idle_share=1 - busy_us / wall_us,
         device_events=len(events),
-        decode_attn_in_path_ms=statistics.mean(attn_us) / 1e3,
+        decode_attn_in_path_ms=sum(attn_us) / 1e3 / (
+            LM_PROFILED_STEPS * cfg.n_layers),
         top=[dict(name=k[:80], ms=v / 1e3) for k, v in sorted(
             by_name.items(), key=lambda kv: -kv[1])[:8]],
         launches=launches, peak_memory_gb=peak_gb,
@@ -658,15 +706,18 @@ def lm_serve(dev) -> tuple[dict, dict]:
     return rec, live
 
 
-def kernel_device_ms(fn, kernel: str, n: int = 6) -> float:
-    """Mean device ms of ``kernel`` over ``n`` calls of ``fn`` traced by the
-    profiler.  The trace may drop the first launch after it starts (one of
-    five was missing in a run of this script), so it needs n - 1 of them."""
+def kernel_device_ms(fn, prefix: str, per_call: int, n: int = 6) -> float:
+    """Device ms of one call of ``fn``, which enqueues ``per_call`` kernels
+    whose names start with ``prefix``: their sum over ``n`` calls traced by
+    the profiler, over n.  The trace may drop the first kernel after it
+    starts (one of five was missing in a run of this script), so it needs
+    all but one of them, and then averages over the kernels it saw."""
     fn()
-    events = [us for name, us in trace_calls(fn, n)[0] if kernel in name]
-    if len(events) < n - 1:
-        raise AssertionError(f"profiler saw {len(events)} {kernel} of {n}")
-    return statistics.mean(events) / 1e3
+    events = [us for name, us in trace_calls(fn, n)[0] if prefix in name]
+    if len(events) < n * per_call - 1:
+        raise AssertionError(f"profiler saw {len(events)} {prefix} kernels "
+                             f"of {n * per_call}")
+    return sum(events) / len(events) * per_call / 1e3
 
 
 def _decode_bound(lens, k_, g, hd, item_q, item_kv) -> tuple[float, str]:
@@ -687,6 +738,9 @@ def decode_attn_case(name, q, ck, cv, lens, on_path) -> dict:
     for it before timing (the port never calls it)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.decode_attn.decode_attn import (decode_attn,
+                                                             decode_schedule)
     from repro_torch.kernels.decode_attn.ops import (flash_decode,
                                                      flash_decode_ref)
     b, _, k_, g, hd = q.shape
@@ -734,7 +788,8 @@ def decode_attn_case(name, q, ck, cv, lens, on_path) -> dict:
                lengths=[min(lens_host), max(lens_host)], max_abs_err=err,
                plain_max_abs=plain_max, rtol=rtol, atol=atol,
                device_ms=kernel_device_ms(
-                   lambda: flash_decode(q, ck, cv, lens), "decode_attn_kernel"),
+                   lambda: flash_decode(q, ck, cv, lens), "decode_attn_",
+                   decode_attn.kernels_per_launch),
                event_ms=time_ms(lambda: flash_decode(q, ck, cv, lens), 20),
                plain_ms=time_ms(lambda: flash_decode_ref(q, ck, cv, lens), 5,
                                 warmup=1),
@@ -742,6 +797,9 @@ def decode_attn_case(name, q, ck, cv, lens, on_path) -> dict:
                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                    qh, kh, vh, attn_mask=mask, enable_gqa=True), 20),
                library_max_abs_err=lib_err, **peaked)
+    n_split, chunk = decode_schedule(s, b * k_, backend.sm_count(q.device))
+    rec["schedule"] = dict(n_split=n_split, chunk=chunk, grid=[b * k_, n_split],
+                           merge_grid=[b * k_])
     rec["bound_ms"], rec["bound_by"] = _decode_bound(
         lens_host, k_, g, hd, q.element_size(), ck.element_size())
     rec["roofline_share"] = rec["bound_ms"] / (rec["device_ms"] or
@@ -848,6 +906,19 @@ def main() -> int:
         if not r["on_path"] or named & set(r["layers"]) and (
                 "spatial" in r["per_forward"] or "b1_dw" in r["layers"]):
             print(f"kernel {json.dumps(r)}")
+    # each on-path shape's schedule beside its device ms, one short line
+    # each: qgemm M x K x N, tile height t, splits s; depthwise windows x C
+    # x R x Wp x stride, channels c and output rows r of a CTA; grid g
+    for r in recs:
+        if r["on_path"]:
+            sch = r["schedule"]
+            split = (f"t{sch['tile'][0]} s{sch['splits']}"
+                     if r["kernel"] == "qgemm" else
+                     f"c{sch['c_tile']} r{sch['rows_tile']}")
+            print(f"sched {r['kernel'][:6]} "
+                  f"{'x'.join(map(str, r['shape']))} {split} "
+                  f"g{'x'.join(map(str, sch['grid']))} "
+                  f"{launch_ms(r):.5f}ms")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_shapes.json").write_text(json.dumps(

@@ -538,7 +538,7 @@ class _Int8Layer:
     """Device constants of one int8 layer."""
 
     w: torch.Tensor                 # int8, the layer's own weight layout
-    w_gemm: torch.Tensor | None     # (K, N) int8 GEMM operand (conv/linear)
+    w_gemm: torch.Tensor | None     # (K, N) int8 GEMM operand, K contiguous
     w_dw: torch.Tensor | None       # (C, kh, kw) int8 (depthwise)
     scale: torch.Tensor             # (C_out,) f32 epilogue multiplier
     b_q: torch.Tensor               # (C_out,) int32
@@ -675,15 +675,18 @@ class CompiledSplitExecutor:
                 continue
             ql = self.qmodel.layers[i]
             scale, b_q = epilogue_params(ql)
-            w_gemm = w_dw = None
+            w_nk = w_dw = None
             if layer.kind == "linear":
-                w_gemm = ql.w_q
+                w_nk = ql.w_q.T
             elif layer.kind == "conv":
-                w_gemm = ql.w_q.reshape(layer.out_shape[0], -1).T
+                w_nk = ql.w_q.reshape(layer.out_shape[0], -1)
             else:
                 w_dw = ql.w_q[:, 0]
+            # the GEMM weight is stored (N, K) and used as its (K, N)
+            # transpose: K contiguous, as the qgemm kernel reads it, and a
+            # column slice is a row range of the storage (no copy per call)
             consts.int8[i] = _Int8Layer(
-                t(ql.w_q), None if w_gemm is None else t(w_gemm),
+                t(ql.w_q), None if w_nk is None else t(w_nk).t(),
                 None if w_dw is None else t(w_dw), t(scale), t(b_q),
                 float(ql.out_scale))
         for idxs in self.plan.block_groups:

@@ -97,6 +97,14 @@ def library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build()[name]))
 
 
+@functools.cache
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (a host query, no sync);
+    the schedule pickers size their grids by it."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def check(name: str, status: int, what: str) -> None:
     """Raise if a C entry point of ``lib<name>.so`` reported a CUDA error."""
     if status != 0:

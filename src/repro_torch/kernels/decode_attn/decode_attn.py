@@ -10,6 +10,12 @@ masks ragged S itself.  A CPU tensor takes the plain version
 (:func:`.ref.decode_attn_ref`); a CUDA tensor launches the kernel or
 raises.  ``decode_attn.launches`` counts kernel launches.
 
+Each call enqueues two kernels (``decode_attn.kernels_per_launch``): one
+that splits the cache over CTAs and writes float32 partials to a
+workspace, and one that merges them.  :func:`decode_schedule` picks the
+split from S, B*K and the SM count, never from ``lengths``, so a call
+makes no synchronising query of the card.
+
 Contract on ``lengths``: each in [1, S].  At 0 the reference kernel and its
 plain version already disagree (both average v, over padded and unpadded
 slots); the CUDA kernel writes zeros there.
@@ -27,16 +33,39 @@ from .ref import decode_attn_ref, softmax_scale
 # (q dtype, cache dtype) pairs the kernel takes
 _DTYPES = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
            (torch.float32, torch.bfloat16)}
-_HEAD_DIMS = (8, 16, 32, 64, 128, 256)     # hd / 8 lanes read one row
-_MAX_G, _MAX_QELEMS = 16, 2048
+_HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # hd % 16 == 0: tensor cores
+_MAX_G = 16
+TILE_S = 64             # slots of the tensor-core kernel's tile
+RESIDENT = 2            # its CTAs that fit one SM (104 KB of shared memory)
+MAX_CHUNK_TILES = 32    # longest chunk, in tiles
+
+
+def decode_schedule(s: int, bk: int, n_sm: int = 132) -> tuple[int, int]:
+    """(n_split, chunk) of one call over a cache of ``s`` slots and ``bk``
+    (batch row, kv head) pairs: CTA j of a pair owns slots
+    [j * chunk, (j + 1) * chunk).  ``chunk`` is a multiple of ``TILE_S``
+    and the chunks cover S with none empty.  As many chunks as fill one
+    wave of ``RESIDENT`` CTAs on each of ``n_sm`` SMs, unless a chunk would
+    then pass ``MAX_CHUNK_TILES`` tiles: then chunks of that length, over
+    several waves, which the card balances as CTAs finish."""
+    tiles = max(1, -(-s // TILE_S))
+    n_split = max(1, RESIDENT * n_sm // max(bk, 1))
+    per = min(MAX_CHUNK_TILES, -(-tiles // n_split))
+    return -(-tiles // per), per * TILE_S
+
+
+def chunk_is_empty(j: int, chunk: int, length: int) -> bool:
+    """True when chunk ``j`` holds no slot below ``length``: its CTA writes
+    an empty partial (l = 0) and reads no cache."""
+    return j * chunk >= length
 
 
 @functools.cache
 def _entry():
     fn = backend.library("decode_attn").decode_attn_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, i, i,
-                   ctypes.c_float, p]
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
+                   i, i, ctypes.c_float, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -91,10 +120,9 @@ def decode_attn(q, k, v, lengths, *, block_s: int = 512):
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn runs on cuda or cpu, not {q.device}")
     b, kh, g, hd = q.shape
-    if hd not in _HEAD_DIMS or g > _MAX_G or g * hd > _MAX_QELEMS:
-        raise ValueError(f"the decode_attn kernel takes hd in {_HEAD_DIMS}, "
-                         f"G <= {_MAX_G} and G * hd <= {_MAX_QELEMS}; got "
-                         f"G={g}, hd={hd}")
+    if hd not in _HEAD_DIMS or g > _MAX_G:
+        raise ValueError(f"the decode_attn kernel takes hd in {_HEAD_DIMS} "
+                         f"and G <= {_MAX_G}; got G={g}, hd={hd}")
     k = k if _aligned(k) else k.contiguous()
     v = v if _aligned(v) else v.contiguous()
     q, lengths = q.contiguous(), lengths.contiguous()
@@ -102,14 +130,17 @@ def decode_attn(q, k, v, lengths, *, block_s: int = 512):
     s = k.shape[2]
     if b * kh == 0 or g == 0:
         return out
+    n_split, chunk = decode_schedule(s, b * kh, backend.sm_count(q.device))
+    ws = torch.empty(b * kh * n_split * g * (hd + 2), dtype=torch.float32,
+                     device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      lengths.data_ptr(), out.data_ptr(), b, kh, g, s, hd,
-                      k.stride(0), k.stride(2), k.stride(1), v.stride(0),
-                      v.stride(2), v.stride(1),
+                      lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), b,
+                      kh, g, s, hd, k.stride(0), k.stride(2), k.stride(1),
+                      v.stride(0), v.stride(2), v.stride(1),
                       int(q.dtype == torch.bfloat16),
                       int(k.dtype == torch.bfloat16),
-                      _scale(hd), stream)
+                      _scale(hd), n_split, chunk, stream)
     decode_attn.launches += 1
     backend.check("decode_attn", status, f"decode_attn B={b} K={kh} G={g} "
                   f"S={s} hd={hd}")
@@ -117,3 +148,4 @@ def decode_attn(q, k, v, lengths, *, block_s: int = 512):
 
 
 decode_attn.launches = 0
+decode_attn.kernels_per_launch = 2

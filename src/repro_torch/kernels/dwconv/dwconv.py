@@ -141,3 +141,4 @@ def dwconv3x3_bands(x_win, w, scale, bias, *, stride: int = 1,
 
 dwconv3x3.launches = 0
 dwconv3x3_bands.launches = 0
+dwconv3x3.kernels_per_launch = dwconv3x3_bands.kernels_per_launch = 1

@@ -19,7 +19,9 @@ import torch
 import repro_torch.core as T
 from repro_torch.api import Session
 from repro_torch.configs import get_config
-from repro_torch.kernels.decode_attn.decode_attn import decode_attn
+from repro_torch.kernels.decode_attn.decode_attn import (chunk_is_empty,
+                                                        decode_attn,
+                                                        decode_schedule)
 from repro_torch.kernels.decode_attn.ops import flash_decode, flash_decode_ref
 from repro_torch.kernels.dwconv.dwconv import dwconv3x3, dwconv3x3_bands
 from repro_torch.kernels.dwconv.ref import dwconv3x3_ref
@@ -83,6 +85,61 @@ def test_qgemm_column_slices(cuda):
     got = qgemm(x, w[:, 10:43], s[10:43], b[10:43], out_scale=0.05)
     assert torch.equal(got, qgemm_ref(x, w[:, 10:43], s[10:43], b[10:43],
                                       out_scale=0.05))
+
+
+def _assert_gemm(got, exp, int8_out):
+    if int8_out:
+        assert torch.equal(got, exp)
+    else:
+        torch.testing.assert_close(got, exp, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+@pytest.mark.parametrize("k", [16, 27, 960, 1280, 1281])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 128, 35840])
+def test_qgemm_schedules_vs_plain(cuda, m, k, layout):
+    """Every tile height and split schedule (``qgemm_schedule``) on a ragged
+    N, with the weight K-contiguous as the engine stores it: the whole
+    (N, K) upload transposed, or a column slice of it with a row-strided x
+    whose rows are not 16-byte aligned (the byte-staged path).  No weight
+    is copied."""
+    rng = np.random.default_rng(m * 7 + k)
+    n = 130
+    x = torch.from_numpy(rng.integers(-127, 128, (m, k + 13))
+                         .astype(np.int8)).to(cuda)
+    w_nk = torch.from_numpy(rng.integers(-127, 128, (n + 70, k))
+                            .astype(np.int8)).to(cuda)
+    if layout == "contiguous":
+        x, w = x[:, :k].contiguous(), w_nk[:n].t()
+    else:
+        x, w = x[:, 5:5 + k], w_nk.t()[:, 37:37 + n]
+    assert w.stride(0) == 1
+    s = torch.from_numpy((rng.uniform(0.5, 1.5, n) / (127 * 127 * np.sqrt(k)))
+                         .astype(np.float32)).to(cuda)
+    bq = torch.from_numpy(rng.integers(-3000, 3000, n).astype(np.int32)).to(
+        cuda)
+    bf = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(cuda)
+    copies = qgemm.weight_copies
+    for bias, act, osc in ((bq, "relu6", 0.05), (bq, None, None),
+                           (bf, "relu", None), (bf, None, 0.05)):
+        got = qgemm(x, w, s, bias, activation=act, out_scale=osc)
+        exp = qgemm_ref(x, w, s, bias, activation=act, out_scale=osc)
+        torch.cuda.synchronize()
+        # the float bias with int8 output rounds the same products the
+        # same way (a multiply, then an add): bit-exact as well
+        _assert_gemm(got, exp, osc is not None or bias is bq)
+    assert qgemm.weight_copies == copies
+
+
+def test_qgemm_row_major_weight_is_copied_and_counted(cuda):
+    x, w, s, b = _gemm_inputs(np.random.default_rng(3), 8, 1280, 100, True,
+                              cuda)
+    copies = qgemm.weight_copies
+    got = qgemm(x, w, s, b, out_scale=0.05)
+    assert qgemm.weight_copies == copies + 1
+    assert torch.equal(got, qgemm(x, w.t().contiguous().t(), s, b,
+                                  out_scale=0.05))
+    assert qgemm.weight_copies == copies + 1
 
 
 @pytest.mark.parametrize("stride", [1, 2])
@@ -208,6 +265,33 @@ def test_decode_attn_masks_past_lengths(cuda):
     # one valid slot: the output is that slot's v
     torch.testing.assert_close(out2[1, 0], cv[1, 0][:, None].expand(2, 2, 32),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtypes", list(DECODE_DTYPES))
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 5, 8, 16])
+def test_decode_attn_split_cases(cuda, g, hd, dtypes):
+    """The split over S (``decode_schedule``): S = 1333 is no multiple of
+    the chunk; row 0 has one valid slot, row 1 all of them, and row 2 100,
+    which leaves whole chunks empty; bf16 caches again with peaked q."""
+    q_dt, kv_dt = DECODE_DTYPES[dtypes]
+    q, ck, cv, _ = _decode_inputs(np.random.default_rng(g * hd), 3, 2, g, hd,
+                                  1333, cuda, q_dt, kv_dt)
+    lens = torch.tensor([1, 1333, 100], dtype=torch.int32, device=cuda)
+    n_split, chunk = decode_schedule(1333, 6)
+    assert n_split > 2 and chunk_is_empty(n_split - 1, chunk, 100)
+    scales = (1.0, 8.0) if kv_dt == torch.bfloat16 else (1.0,)
+    for scale in scales:
+        qs = (q.float() * scale).to(q_dt)
+        got = flash_decode(qs, ck, cv, lens)
+        exp = flash_decode_ref(qs, ck, cv, lens)
+        torch.cuda.synchronize()
+        assert got.dtype == q_dt
+        _assert_decode_close(got, exp, q_dt, kv_dt)
+        # one valid slot: that slot's v, to the output's rounding
+        torch.testing.assert_close(
+            got[0, 0].float(), cv[0, 0].float()[:, None].expand(2, g, hd)
+            .to(q_dt).float(), rtol=1e-6, atol=1e-6)
 
 
 def test_lm_decode_on_card_equals_cpu(cuda):
