@@ -51,7 +51,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.dwconv.ops import dwconv, dwconv_bands
+from ..kernels.dwconv.ops import (ShardTable, dwconv_bands_unpadded,
+                                   dwconv_shards, shard_table)
 from ..kernels.dwconv.ref import dwconv_acc_int32 as _dwconv_bands_int32
 from ..kernels.qgemm.ops import im2col, im2col_bands, qgemm
 from .fusion import apply_activation
@@ -547,13 +548,15 @@ class _Int8Layer:
 
 class _DeviceConstants:
     """Everything one plan needs on one device, uploaded once: per-layer
-    int8 and float constants (filled per mode on first use) and every fused
-    spatial block's gather indices and masks."""
+    int8 and float constants (filled per mode on first use), every fused
+    spatial block's gather indices and masks, and the shard table of every
+    flat 3x3 depthwise layer."""
 
     def __init__(self):
         self.int8: dict[int, _Int8Layer] = {}
         self.float: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         self.bands: dict[tuple[int, ...], tuple] = {}
+        self.shards: dict[int, ShardTable] = {}
         self.modes: set[str] = set()
 
 
@@ -689,6 +692,10 @@ class CompiledSplitExecutor:
                 t(ql.w_q), None if w_nk is None else t(w_nk).t(),
                 None if w_dw is None else t(w_dw), t(scale), t(b_q),
                 float(ql.out_scale))
+            geoms = [g for g in self._geometry[i] if g is not None]
+            if _kernel_eligible_dwconv(layer) and geoms:
+                consts.shards[i] = shard_table(
+                    [(g.c_lo, g.c_hi, g.start, g.stop) for g in geoms])
         for idxs in self.plan.block_groups:
             if self.plan.splits[idxs[0]].mode != "spatial" or idxs in consts.bands:
                 continue
@@ -760,16 +767,12 @@ class CompiledSplitExecutor:
                 off = g.start - g.c_lo * hw
                 parts.append(flat[:, off:off + g.n_positions])
         elif _kernel_eligible_dwconv(layer):
-            for g in geoms:
-                span = slice(g.c_lo, g.c_hi + 1)
-                y = dwconv(cur[:, span], c.w_dw[span], c.scale[span],
-                           c.b_q[span], stride=layer.stride[0],
-                           activation=act, out_scale=out_scale)
-                # the kernel computes the fragment's full rows: the shard's
-                # flat range starts at g.start - c_lo*hw in the fragment
-                flat = y.reshape(bsz, -1)
-                off = g.start - g.c_lo * hw
-                parts.append(flat[:, off:off + g.n_positions])
+            # every worker's shard in one launch, straight into the layer's
+            # flat output (the shards' ranges tile it in worker order)
+            y = dwconv_shards(cur, consts.shards[i], c.w_dw, c.scale, c.b_q,
+                              stride=layer.stride[0], activation=act,
+                              out_scale=out_scale)
+            return y.reshape(bsz, *layer.out_shape)
         else:
             _uncovered(layer, cur)
             x_pad = _pad_chw(cur, layer.padding)
@@ -784,16 +787,13 @@ class CompiledSplitExecutor:
         return torch.cat(parts, dim=1).reshape(bsz, *layer.out_shape)
 
     def _banded_stage_int8(self, layer: LayerSpec, xw, c: _Int8Layer):
-        """One batched-band int8 stage over the gathered windows ``xw``
-        ((batch*bands, C_in, R, W + 2*pw), zero rows in place): one
-        ``dwconv3x3_bands`` launch for a 3x3 depthwise stage, one
-        ``im2col_bands`` + ``qgemm`` launch for a conv stage, with the bands
-        (and the batch) folded into the GEMM's M."""
+        """One batched-band int8 conv stage over the gathered windows
+        ``xw`` ((batch*bands, C_in, R, W + 2*pw), zero rows in place): one
+        ``im2col_bands`` + ``qgemm`` launch, with the bands (and the batch)
+        folded into the GEMM's M.  (A 3x3 depthwise stage is one
+        ``dwconv3x3_bands`` launch on the unpadded windows, in
+        :meth:`_block_spatial`.)"""
         act, out_scale = layer.activation, c.out_scale
-        if _kernel_eligible_dwconv(layer):
-            return dwconv_bands(xw, c.w_dw, c.scale, c.b_q,
-                                stride=layer.stride[0], activation=act,
-                                out_scale=out_scale)
         if layer.kind == "conv":
             patches, (oh, ow) = im2col_bands(xw, layer.kernel, layer.stride)
             y = qgemm(patches, c.w_gemm, c.scale, c.b_q, activation=act,
@@ -838,13 +838,19 @@ class CompiledSplitExecutor:
                 xw = torch.gather(xv, 3, index)
             xw = torch.where(mask, xw, 0)
             xw = xw.reshape(bsz * n_bands, c_in, r_win, width)
-            if pw:
-                xw = F.pad(xw, (pw, pw))
-            if mode == "int8":
-                x = self._banded_stage_int8(layer, xw, consts.int8[idx])
+            if mode == "int8" and _kernel_eligible_dwconv(layer):
+                # the kernel reads the width's zero columns itself
+                c = consts.int8[idx]
+                x = dwconv_bands_unpadded(
+                    xw, c.w_dw, c.scale, c.b_q, stride=layer.stride[0],
+                    activation=layer.activation, out_scale=c.out_scale)
+            elif mode == "int8":
+                x = self._banded_stage_int8(layer, _pad_chw(xw, (0, pw)),
+                                            consts.int8[idx])
             else:
                 wt, b = consts.float[idx]
-                acc = _conv_bands(xw, wt, layer.stride, int8=False)
+                acc = _conv_bands(_pad_chw(xw, (0, pw)), wt, layer.stride,
+                                  int8=False)
                 x = apply_activation(acc + b[:, None, None], layer.activation)
         # (batch*bands, C, r_out, W) -> one static row gather aggregates
         c_out, r_out, width = x.shape[1], x.shape[2], x.shape[3]

@@ -2,21 +2,28 @@
 
 Port of ``repro/kernels/dwconv/ops.py``, with the same contracts; each
 function also takes a leading batch axis.  The CUDA kernel masks the
-channel tile itself, so nothing pads channels to a block multiple.
+channel tile and makes the zero border itself, so nothing pads channels to
+a block multiple and :func:`dwconv` copies no padded input.  Two entries
+serve the port's engine only: :func:`dwconv_bands_unpadded` (band windows
+whose width is padded in the kernel) and :func:`dwconv_shards` (a flat
+layer over all of its worker shards in one launch).
 """
 from __future__ import annotations
 
-import torch.nn.functional as F
+from .dwconv import (ShardTable, dwconv3x3, dwconv3x3_bands,
+                     dwconv3x3_bands_unpadded, dwconv3x3_same,
+                     dwconv3x3_shards, shard_table)
 
-from .dwconv import dwconv3x3, dwconv3x3_bands
+__all__ = ["ShardTable", "dwconv", "dwconv_bands", "dwconv_bands_unpadded",
+           "dwconv_shards", "dwconv_window", "shard_table"]
 
 
 def dwconv(x_q, w, scale, bias, *, stride: int = 1, activation=None,
            out_scale=None):
     """x_q: (C, H, W) or (B, C, H, W) int8 (unpadded); SAME 3x3 depthwise
     conv."""
-    return dwconv3x3(F.pad(x_q, (1, 1, 1, 1)), w, scale, bias, stride=stride,
-                     activation=activation, out_scale=out_scale)
+    return dwconv3x3_same(x_q, w, scale, bias, stride=stride,
+                          activation=activation, out_scale=out_scale)
 
 
 def dwconv_window(x_win, w, scale, bias, *, stride: int = 1, activation=None,
@@ -38,3 +45,21 @@ def dwconv_bands(x_win, w, scale, bias, *, stride: int = 1, activation=None,
     return dwconv3x3_bands(x_win, w, scale, bias, stride=stride,
                            activation=activation, out_scale=out_scale)
 
+
+def dwconv_bands_unpadded(x_win, w, scale, bias, *, stride: int = 1,
+                          activation=None, out_scale=None):
+    """:func:`dwconv_bands` over windows (bands, C, R, W) whose width is not
+    padded yet: the kernel reads a zero column on each side."""
+    return dwconv3x3_bands_unpadded(x_win, w, scale, bias, stride=stride,
+                                    activation=activation,
+                                    out_scale=out_scale)
+
+
+def dwconv_shards(x, shards: ShardTable, w, scale, bias, *, stride: int = 1,
+                  activation=None, out_scale=None):
+    """A flat SAME 3x3 depthwise layer over all of its worker shards in one
+    launch: ``x`` is the layer's unpadded (B, C, H, W) input, ``shards`` its
+    :class:`ShardTable` (:func:`shard_table`).  Returns (B, positions): each
+    shard's flat output range, in shard order."""
+    return dwconv3x3_shards(x, shards, w, scale, bias, stride=stride,
+                            activation=activation, out_scale=out_scale)

@@ -8,6 +8,7 @@ product per tap, exact on CPU and CUDA alike.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ...core.quantize import epilogue
 
@@ -48,3 +49,38 @@ def dwconv3x3_ref(x_pad, w, scale, bias, *, stride: int = 1,
     y = epilogue(acc, scale[:, None, None], bias[:, None, None], activation,
                  out_scale)
     return y[0] if single else y
+
+
+def dwconv_same_ref(x, w, scale, bias, **kw):
+    """SAME 3x3 depthwise conv of an unpadded (C, H, W) or (B, C, H, W)
+    input: pad by 1, then :func:`dwconv3x3_ref`."""
+    return dwconv3x3_ref(F.pad(x, (1, 1, 1, 1)), w, scale, bias, **kw)
+
+
+def dwconv_bands_unpadded_ref(x_win, w, scale, bias, **kw):
+    """Band windows (NB, C, R, W) whose width is not padded: pad the width
+    by 1, then :func:`dwconv3x3_ref`."""
+    return dwconv3x3_ref(F.pad(x_win, (1, 1)), w, scale, bias, **kw)
+
+
+def dwconv_shards_ref(x, shards, w, scale, bias, *, stride: int = 1,
+                      activation: str | None = None,
+                      out_scale: float | None = None):
+    """Plain version of a flat SAME depthwise layer over its worker shards,
+    as the reference's ``_layer_int8`` runs it: for each shard (c_lo, c_hi
+    exclusive, start, stop, ...) of ``shards``, pad its channel span of the
+    unpadded (B, C, H, W) input, convolve, keep its flat range
+    [start, stop) of the layer output, and concatenate the shards in order.
+    Returns (B, positions)."""
+    bsz = x.shape[0]
+    parts = []
+    for c_lo, c_hi, start, stop, *_ in shards:
+        span = slice(c_lo, c_hi)
+        y = dwconv_same_ref(x[:, span], w[span], scale[span], bias[span],
+                            stride=stride, activation=activation,
+                            out_scale=out_scale)
+        # the fragment's full rows: the shard's range starts at
+        # start - c_lo * hw in the fragment
+        off = start - c_lo * y.shape[2] * y.shape[3]
+        parts.append(y.reshape(bsz, -1)[:, off:off + stop - start])
+    return torch.cat(parts, dim=1)

@@ -24,7 +24,9 @@ from repro_torch.kernels.decode_attn.decode_attn import (chunk_is_empty,
                                                         decode_schedule)
 from repro_torch.kernels.decode_attn.ops import flash_decode, flash_decode_ref
 from repro_torch.kernels.dwconv.dwconv import dwconv3x3, dwconv3x3_bands
-from repro_torch.kernels.dwconv.ref import dwconv3x3_ref
+from repro_torch.kernels.dwconv.ops import (dwconv, dwconv_bands_unpadded,
+                                            dwconv_shards, shard_table)
+from repro_torch.kernels.dwconv.ref import dwconv3x3_ref, dwconv_shards_ref
 from repro_torch.kernels.qgemm.qgemm import qgemm
 from repro_torch.kernels.qgemm.ref import qgemm_ref
 from repro_torch.models import lm, mobilenet_v2_smoke
@@ -168,6 +170,155 @@ def test_dwconv_sample_vs_plain(cuda):
     assert dwconv3x3.launches == before + 1
     assert torch.equal(got, dwconv3x3_ref(x, w, s, b, stride=2,
                                           activation="relu6", out_scale=0.05))
+
+
+def _shards(c, hw, n, whole_channels, rng):
+    """``n`` shards of a (c, hw) flat layer in worker order, cut at random
+    channel boundaries or at random positions (channels split between
+    shards), as (c_lo, c_hi inclusive, start, stop)."""
+    total = c * hw
+    unit = hw if whole_channels else 1
+    cuts = rng.choice(np.arange(1, total // unit), size=min(n, total // unit)
+                      - 1, replace=False) * unit if total // unit > 1 else []
+    bounds = [0, *sorted(int(b) for b in cuts), total]
+    return [(a // hw, (b - 1) // hw, a, b) for a, b in zip(bounds, bounds[1:])]
+
+
+def _dw_both(rng, c, dev):
+    """Taps, scale and an int32 and a float32 bias."""
+    w, s, bq = _dw_inputs(rng, c, dev)
+    bf = torch.from_numpy(rng.uniform(-1, 1, c).astype(np.float32)).to(dev)
+    return w, s, bq, bf
+
+
+def _assert_dw(got, exp, int8_out):
+    if int8_out:
+        assert torch.equal(got, exp)
+    else:
+        # the kernel's rounded multiply then add, as the plain one
+        torch.testing.assert_close(got, exp, rtol=1e-6, atol=1e-6)
+
+
+# (batch, C, H, W, stride): the flat plans' shapes (b1_dw, b3_dw, b13_dw,
+# b14_dw of the paper model) and misaligned planes: widths 3, 6, 14, 29,
+# 58, odd channel counts, 36-byte planes
+FLAT_SHAPES = [(8, 96, 56, 56, 2), (8, 144, 28, 28, 2), (8, 576, 7, 7, 2),
+               (8, 960, 4, 4, 1), (3, 7, 9, 3, 1), (2, 13, 6, 6, 1),
+               (5, 11, 14, 14, 2), (2, 19, 29, 29, 1), (1, 5, 58, 58, 2),
+               (4, 33, 2, 2, 1), (2, 3, 1, 7, 2)]
+
+
+@pytest.mark.parametrize("cut", ["one", "kernel", "neuron"])
+@pytest.mark.parametrize("b,c,h,w,stride", FLAT_SHAPES)
+def test_dwconv_shards_vs_plain(cuda, b, c, h, w, stride, cut):
+    """A flat layer over all of its shards in one launch (kernel-mode
+    channel spans, or neuron-mode ranges that split channels), int8 output
+    bit-exact and float32 output within one rounding of the plain loop."""
+    rng = np.random.default_rng(c * h + w + stride)
+    x = torch.from_numpy(rng.integers(-127, 128, (b, c, h, w))
+                         .astype(np.int8)).to(cuda)
+    wt, s, bq, bf = _dw_both(rng, c, cuda)
+    hw = ((h - 1) // stride + 1) * ((w - 1) // stride + 1)
+    n = {"one": 1, "kernel": 8, "neuron": 8}[cut]
+    table = shard_table(_shards(c, hw, n, cut == "kernel", rng))
+    for bias, act, osc in ((bq, "relu6", 0.05), (bf, "relu", None),
+                           (bq, None, None), (bf, None, 0.05)):
+        before = dwconv3x3.launches
+        got = dwconv_shards(x, table, wt, s, bias, stride=stride,
+                            activation=act, out_scale=osc)
+        assert dwconv3x3.launches == before + 1
+        exp = dwconv_shards_ref(x, table.rows, wt, s, bias, stride=stride,
+                                activation=act, out_scale=osc)
+        torch.cuda.synchronize()
+        assert got.shape == (b, c * hw)
+        _assert_dw(got, exp, osc is not None or bias is bq)
+
+
+# (windows, C, R, W, stride): the spatial plan's band stacks (b1_dw,
+# b14_dw) and misaligned ones
+BAND_SHAPES = [(64, 96, 11, 56, 2), (32, 960, 3, 4, 1), (48, 576, 4, 7, 1),
+               (7, 19, 9, 14, 1), (5, 13, 5, 29, 2), (3, 9, 4, 3, 1),
+               (6, 7, 6, 6, 2), (2, 5, 3, 58, 1)]
+
+
+@pytest.mark.parametrize("nb,c,rows,w,stride", BAND_SHAPES)
+def test_dwconv_bands_unpadded_vs_plain(cuda, nb, c, rows, w, stride):
+    rng = np.random.default_rng(nb * c + w)
+    x = torch.from_numpy(rng.integers(-127, 128, (nb, c, rows, w))
+                         .astype(np.int8)).to(cuda)
+    wt, s, bq, bf = _dw_both(rng, c, cuda)
+    xp = torch.nn.functional.pad(x, (1, 1))
+    for bias, act, osc in ((bq, "relu6", 0.05), (bf, "relu", None)):
+        before = dwconv3x3_bands.launches
+        got = dwconv_bands_unpadded(x, wt, s, bias, stride=stride,
+                                    activation=act, out_scale=osc)
+        assert dwconv3x3_bands.launches == before + 1
+        exp = dwconv3x3_ref(xp, wt, s, bias, stride=stride, activation=act,
+                            out_scale=osc)
+        torch.cuda.synchronize()
+        _assert_dw(got, exp, osc is not None)
+
+
+@pytest.mark.parametrize("b,c,h,w,stride", FLAT_SHAPES[4:])
+def test_dwconv_same_vs_plain(cuda, b, c, h, w, stride):
+    """``ops.dwconv`` pads in the kernel; one sample or a batch."""
+    rng = np.random.default_rng(b + c + h)
+    x = torch.from_numpy(rng.integers(-127, 128, (b, c, h, w))
+                         .astype(np.int8)).to(cuda)
+    wt, s, bq, _ = _dw_both(rng, c, cuda)
+    for xin in (x, x[0]):
+        before = dwconv3x3.launches
+        got = dwconv(xin, wt, s, bq, stride=stride, activation="relu6",
+                     out_scale=0.05)
+        assert dwconv3x3.launches == before + 1
+        exp = dwconv3x3_ref(torch.nn.functional.pad(xin, (1, 1, 1, 1)), wt,
+                            s, bq, stride=stride, activation="relu6",
+                            out_scale=0.05)
+        assert torch.equal(got, exp)
+
+
+def test_dwconv_shards_beyond_the_kernel_raise(cuda):
+    n = 65
+    table = shard_table([(c, c, c * 4, c * 4 + 4) for c in range(n)])
+    x = torch.ones((1, n, 2, 2), dtype=torch.int8, device=cuda)
+    w, s, b = _dw_inputs(np.random.default_rng(0), n, cuda)
+    with pytest.raises(ValueError, match="at most"):
+        dwconv_shards(x, table, w, s, b)
+
+
+def test_dwconv_smem_layout_matches_schedule(cuda):
+    """The schedule budgets the shared memory the kernel lays out."""
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.dwconv.dwconv import smem_bytes
+    fn = backend.library("dwconv").dwconv_smem_bytes
+    for c_tile, slab in ((1, 16), (7, 640), (32, 3152), (128, 48)):
+        assert fn(c_tile, slab) == smem_bytes(c_tile, slab)
+
+
+@pytest.mark.parametrize("mode", ["kernel", "neuron", "spatial"])
+def test_forward_one_depthwise_launch_per_layer(cuda, mode):
+    """A forward makes one depthwise launch per depthwise layer: on the
+    flat plans one ``dwconv3x3`` launch over all shards, on the spatial
+    plan one ``dwconv3x3_bands`` launch over all bands."""
+    model = mobilenet_v2_smoke()
+    rng = np.random.default_rng(1)
+    calib = [rng.standard_normal(model.input_shape).astype(np.float32)
+             for _ in range(2)]
+    xs = rng.standard_normal((4, *model.input_shape)).astype(np.float32)
+    plan = T.split_model(model, [1.0, 2.7, 0.35, 1.6, 0.5, 1.15], mode=mode)
+    cpu = Session(plan, calibration=calib, device="cpu", max_batch=4)
+    eng = T.CompiledSplitExecutor(plan, cpu.qmodel, device=cuda)
+    eng.run_batch(xs, mode="int8")
+    before = dwconv3x3.launches, dwconv3x3_bands.launches
+    got = eng.run_batch(xs, mode="int8")
+    n_dw = sum(layer.kind == "dwconv" for layer in model.layers)
+    flat = mode != "spatial"
+    assert (dwconv3x3.launches - before[0],
+            dwconv3x3_bands.launches - before[1]) == (
+                (n_dw, 0) if flat else (0, n_dw))
+    np.testing.assert_array_equal(
+        got, T.CompiledSplitExecutor(plan, cpu.qmodel, device="cpu")
+        .run_batch(xs, mode="int8"))
 
 
 @pytest.mark.parametrize("mode", ["spatial", "kernel", "neuron", "mixed"])

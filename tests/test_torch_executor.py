@@ -172,6 +172,21 @@ class TestInt8Parity:
         assert "spatial" in tp.group_modes and "kernel" in tp.group_modes
         _check_int8(rp, tp, rq, tq, xs)
 
+    @pytest.mark.parametrize("mode", ["kernel", "neuron"])
+    def test_heterogeneous_ratings_uneven_shards(self, smoke, mode):
+        """Ratings far apart give uneven shard spans (and, in neuron mode,
+        channels split between shards) in every flat depthwise layer."""
+        rm, tm, rq, tq, xs = smoke
+        ratings = [1.0, 2.7, 0.35, 1.6, 0.5, 1.15]
+        rp, tp = _plans(mode, rm, tm, ratings)
+        spans = [[g.c_hi - g.c_lo + 1 for g in geoms if g is not None]
+                 for geoms, layer in zip(
+                     (T.compile_shard_geometry(lyr, sp)
+                      for lyr, sp in zip(tm.layers, tp.splits)), tm.layers)
+                 if layer.kind == "dwconv"]
+        assert any(max(s) >= 2 * min(s) for s in spans)
+        _check_int8(rp, tp, rq, tq, xs)
+
     @pytest.mark.parametrize("mode", ["spatial", "neuron"])
     def test_run_batch_equals_stacked_runs(self, smoke, mode):
         _, tm, _, tq, xs = smoke
@@ -261,6 +276,39 @@ class TestEngine:
         T.CompiledSplitExecutor.cache_clear()
         assert T.CompiledSplitExecutor.cache_stats() == dict(
             size=0, hits=0, misses=0)
+
+    @pytest.mark.parametrize("mode", ["kernel", "neuron", "spatial"])
+    def test_one_depthwise_call_per_layer(self, smoke, mode, monkeypatch):
+        """A flat depthwise layer is one ``dwconv_shards`` call over all of
+        its shards, a spatial depthwise stage one ``dwconv_bands_unpadded``
+        call, and neither pads its input first."""
+        _, tm, _, tq, xs = smoke
+        calls = {"shards": 0, "bands": 0, "pad": 0}
+
+        def counted(name, fn):
+            def wrapper(*args, **kw):
+                calls[name] += 1
+                return fn(*args, **kw)
+            return wrapper
+
+        monkeypatch.setattr(port_executor, "dwconv_shards",
+                            counted("shards", port_executor.dwconv_shards))
+        monkeypatch.setattr(port_executor, "dwconv_bands_unpadded",
+                            counted("bands",
+                                    port_executor.dwconv_bands_unpadded))
+        eng = T.CompiledSplitExecutor(T.split_model(tm, RATINGS, mode=mode),
+                                      tq, device="cpu")
+        eng.run_batch(xs[:1], mode="int8")      # uploads the constants
+        monkeypatch.setattr(port_executor, "_pad_chw",
+                            counted("pad", port_executor._pad_chw))
+        calls.update(shards=0, bands=0)
+        eng.run_batch(xs, mode="int8")
+        n_dw = sum(layer.kind == "dwconv" for layer in tm.layers)
+        flat = mode != "spatial"
+        assert calls["shards"] == (n_dw if flat else 0)
+        assert calls["bands"] == (0 if flat else n_dw)
+        # the engine pads no depthwise input (flat conv layers use im2col)
+        assert calls["pad"] == 0 if flat else calls["pad"] > 0
 
     def test_bad_mode_and_missing_qmodel(self, smoke):
         _, tm, _, _, xs = smoke

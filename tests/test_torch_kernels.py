@@ -19,7 +19,10 @@ from repro.kernels.dwconv.ops import dwconv_bands as jax_dwconv_bands
 from repro.kernels.dwconv.ops import dwconv_window as jax_dwconv_window
 from repro.kernels.qgemm.ops import qconv2d as jax_qconv2d
 from repro.kernels.qgemm.ops import qgemm_padded as jax_qgemm
+from repro.models import mobilenet_v2_smoke as ref_smoke
 
+import repro_torch.core as T
+from repro_torch.convert import convert_model
 from repro_torch.kernels import backend
 from repro_torch.kernels.decode_attn.decode_attn import decode_attn
 from repro_torch.kernels.decode_attn.ops import flash_decode, flash_decode_ref
@@ -27,7 +30,9 @@ from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 from repro_torch.kernels.dwconv import dwconv as dw_mod
 from repro_torch.kernels.dwconv.dwconv import dwconv3x3, dwconv3x3_bands
 from repro_torch.kernels.dwconv.ops import (dwconv, dwconv_bands,
-                                            dwconv_window)
+                                            dwconv_bands_unpadded,
+                                            dwconv_shards, dwconv_window,
+                                            shard_table)
 from repro_torch.kernels.qgemm.ops import qconv2d, qgemm_padded
 from repro_torch.kernels.qgemm.qgemm import qgemm
 from repro_torch.kernels.qgemm.ref import qgemm_ref
@@ -182,6 +187,95 @@ class TestDWConvPlain:
                            out_scale=0.05)
         np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
 
+    @pytest.mark.parametrize("int_bias", [True, False])
+    @pytest.mark.parametrize("stride", [1, 2])
+    @pytest.mark.parametrize("bands", [1, 2, 4, 7])
+    def test_unpadded_band_stack_vs_pallas(self, bands, stride, int_bias):
+        """The engine's band form, width padded by the kernel, against the
+        Pallas kernel on the padded stack."""
+        rng = np.random.default_rng(bands * 10 + stride + 100)
+        c, rows, width = 11, 7, 9
+        x = rng.integers(-127, 128, (bands, c, rows, width)).astype(np.int8)
+        w, s, b = _dw_inputs(rng, c, int_bias)
+        exp = jax_dwconv_bands(np.pad(x, ((0, 0), (0, 0), (0, 0), (1, 1))),
+                               w, s, b, stride=stride, activation="relu6",
+                               out_scale=0.05, interpret=True)
+        got = dwconv_bands_unpadded(*_t(x, w, s, b), stride=stride,
+                                    activation="relu6", out_scale=0.05)
+        _assert_matches(got, exp, int_bias, 0.05)
+
+
+def _jax_shard_loop(cur, geoms, w, s, b, stride, hw):
+    """The reference's flat depthwise loop (``repro/core/executor.py``,
+    ``_layer_int8``): per shard, ``dwconv`` over its channel span, the
+    shard's flat range of the fragment, then the concatenation."""
+    parts = []
+    for g in geoms:
+        span = slice(g.c_lo, g.c_hi + 1)
+        y = jax_dwconv(cur[span], w[span], s[span], b[span], stride=stride,
+                       activation="relu6", out_scale=0.05, interpret=True)
+        off = g.start - g.c_lo * hw
+        parts.append(np.asarray(y).reshape(-1)[off:off + g.n_positions])
+    return np.concatenate(parts)
+
+
+class TestDWConvShards:
+    """A flat layer over all of its worker shards in one call, against the
+    reference's per-shard loop, on smoke MobileNetV2's own plans."""
+
+    @pytest.mark.parametrize("workers", [1, 3, 8])
+    @pytest.mark.parametrize("mode", ["kernel", "neuron"])
+    def test_plan_shards_vs_pallas_loop(self, mode, workers):
+        model = convert_model(ref_smoke())
+        ratings = [1.0, 1.7, 0.6, 1.2, 0.9, 1.4, 0.5, 1.1][:workers]
+        plan = T.split_model(model, ratings, mode=mode)
+        rng = np.random.default_rng(workers)
+        split_channels = 0
+        for i, layer in enumerate(model.layers):
+            if layer.kind != "dwconv":
+                continue
+            geoms = [g for g in T.compile_shard_geometry(layer,
+                                                         plan.splits[i])
+                     if g is not None]
+            c, h, wd = layer.in_shape
+            hw = layer.out_shape[1] * layer.out_shape[2]
+            split_channels += sum(a.c_hi == b.c_lo
+                                  for a, b in zip(geoms, geoms[1:]))
+            x = rng.integers(-127, 128, (2, c, h, wd)).astype(np.int8)
+            w, s, b = _dw_inputs(rng, c)
+            table = shard_table([(g.c_lo, g.c_hi, g.start, g.stop)
+                                 for g in geoms])
+            got = dwconv_shards(*_t(x), table, *_t(w, s, b),
+                                stride=layer.stride[0], activation="relu6",
+                                out_scale=0.05)
+            assert got.shape == (2, c * hw)
+            for n in range(2):
+                exp = _jax_shard_loop(x[n], geoms, w, s, b, layer.stride[0],
+                                      hw)
+                np.testing.assert_array_equal(got[n].numpy(), exp)
+        if mode == "neuron" and workers > 1:
+            # a channel split between two neuron shards is among the cases
+            assert split_channels > 0
+
+    def test_destinations_are_running_sums(self):
+        table = shard_table([(0, 2, 0, 40), (2, 2, 40, 45), (2, 4, 45, 80)])
+        assert [r[4] for r in table.rows] == [0, 40, 45]
+        assert [r[1] for r in table.rows] == [3, 3, 5]
+        assert table.spans == (3, 1, 3) and table.positions == 80
+        assert list(table.packed) == [v for row in table.rows for v in row]
+        with pytest.raises(ValueError):
+            shard_table([])
+        with pytest.raises(ValueError):
+            shard_table([(2, 1, 0, 4)])
+        # any number of shards on the CPU (the kernel takes MAX_SHARDS)
+        many = shard_table([(c, c, c * 4, c * 4 + 4)
+                            for c in range(dw_mod.MAX_SHARDS + 1)])
+        x = torch.ones((1, dw_mod.MAX_SHARDS + 1, 2, 2), dtype=torch.int8)
+        w, s, b = _t(*_dw_inputs(np.random.default_rng(0),
+                                 dw_mod.MAX_SHARDS + 1))
+        assert dwconv_shards(x, many, w, s, b).shape == (1, 4 * len(
+            many.rows))
+
 
 class TestWrappers:
     def test_cpu_takes_plain_version_without_launch(self):
@@ -196,6 +290,9 @@ class TestWrappers:
         wd, sd, bd = _t(*_dw_inputs(rng, 4))
         dwconv3x3(xd, wd, sd, bd)
         dwconv3x3_bands(xd, wd, sd, bd)
+        dwconv(xd, wd, sd, bd)
+        dwconv_bands_unpadded(xd, wd, sd, bd)
+        dwconv_shards(xd, shard_table([(0, 3, 0, 144)]), wd, sd, bd)
         assert (qgemm.launches, dwconv3x3.launches,
                 dwconv3x3_bands.launches) == before
 
@@ -226,14 +323,23 @@ class TestWrappers:
             dwconv3x3(torch.zeros((3, 5, 5), dtype=torch.int8),
                       torch.zeros((3, 5, 5), dtype=torch.int8), s, b)
 
-    @pytest.mark.parametrize("c,oh,ow,wp,stride", [
-        (96, 28, 28, 58, 2), (960, 4, 4, 6, 1), (32, 56, 56, 58, 1),
-        (8, 3, 500, 1002, 2)])
-    def test_dwconv_tiles_fit_shared_memory(self, c, oh, ow, wp, stride):
-        rows_tile, c_tile = dw_mod.tiles(c, oh, ow, wp, stride)
-        assert 1 <= rows_tile <= oh and 1 <= c_tile <= c
-        assert c_tile * ((rows_tile - 1) * stride + 3) * wp \
-            <= dw_mod._SMEM_BUDGET
+    @pytest.mark.parametrize("nb,spans,h,w,stride,pad", [
+        (1, [96], 56, 56, 2, (1, 1)), (8, [960], 4, 4, 1, (1, 1)),
+        (8, [32], 56, 56, 1, (1, 1)), (1, [8], 6, 1000, 2, (1, 1)),
+        (8, [12, 13, 11, 12, 12, 12, 12, 12], 56, 56, 2, (1, 1)),
+        (32, [960], 3, 4, 1, (0, 1)), (64, [96], 11, 56, 2, (0, 1)),
+        (1, [3], 5, 7000, 1, (1, 1))])
+    def test_dwconv_tiles_fit_shared_memory(self, nb, spans, h, w, stride,
+                                            pad):
+        sched = dw_mod.dwconv_schedule(nb, spans, h, w, stride, pad)
+        oh, _ = dw_mod.out_size(h, w, stride, pad)
+        assert 1 <= sched.rows_tile <= oh and 1 <= sched.c_tile <= max(spans)
+        assert sched.slab >= dw_mod.slab_bytes(sched.rows_tile, h, w, stride)
+        assert sched.smem <= dw_mod.SMEM_BUDGET
+
+    def test_dwconv_rows_too_wide_raise(self):
+        with pytest.raises(ValueError, match="do not fit"):
+            dw_mod.dwconv_schedule(1, [1], 3, 9000, 1)
 
     def test_build_flags_target_hopper(self):
         assert "arch=compute_90a,code=sm_90a" in backend.NVCC_FLAGS
