@@ -16,7 +16,8 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
    (profiler device time, summed over every kernel a wrapper enqueues for
    one launch, and CUDA events), plain version and a library call there;
    prints each shape's schedule (tile, splits, grid) beside its time; all
-   shapes go to ``chiprun_out/chip_smoke_shapes.json``;
+   shapes go to ``chiprun_out/chip_smoke_shapes.json``.  This step runs
+   after step 6, over the engine's and the workers' launches together;
 3. serves int8 MobileNetV2 at the paper's full width (112x112x3, 1000
    classes, 54 layers) split spatially across 8 workers of unequal ratings
    through ``Session.submit_many`` on the card, and requires the output to
@@ -26,7 +27,34 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
 4. does the same with a kernel-mode and a neuron-mode plan (the flat
    depthwise and im2col paths);
 5. serves the float model on the card, allclose to the CPU;
-6. the LM serving path, ``qwen3-14b`` at its published width:
+6. the planner stack and the distributed runtime:
+   (a) ``Planner`` on ``Cluster.heterogeneous_demo(8)`` must reproduce
+       the committed ``mnv2_112@8`` outcome of ``BENCH_executor.json``
+       (spatial, layer fusion, 7 workers, pipelined; its latency is the
+       planner's simulated MCU latency), and ``plan.compile`` on the card
+       serves a batch bit-exact with a CPU ``Session`` (``planner`` line);
+   (b) that session's ``distributed(spawn="process")``: 7 worker
+       processes on the card (logs in ``chiprun_out/workers``; a worker
+       that exits during setup fails the run at once with its log tail)
+       serve BATCH requests bit-exact with the card's ``Session``,
+       realizing every dependency edge the simulator predicts;
+   (c) the kernel-mode split of the 8 workers above over in-process
+       workers, held the same way, whose launch counters must equal the
+       launches the setup payloads list; each run prints a
+       ``distributed`` line (setup s, ms per request on the host clock,
+       the workers' summed compute ms per request from the coordinator's
+       timeline, launches per request by kernel);
+   (d) an in-process ``ElasticCoordinator`` over ``mobilenet_v2_smoke``
+       on 4 workers: one worker is killed with a request in flight; every
+       output must equal the card's ``Session`` on its topology, the
+       replan must reship less than a full setup and hit the warm segment
+       cache at rate 1.0 (``elastic`` line);
+   every (kernel, shape) the workers launch, read from the setup
+   payloads' segment specs, is held against its plain version and timed
+   with the engine's shapes in step 2 (``path: "distributed"`` in
+   ``chiprun_out/chip_smoke_shapes.json``; ``dist_shapes`` lines sum
+   each run);
+7. the LM serving path, ``qwen3-14b`` at its published width:
    (a) 2 layers in float32 with TF32 off: prefill and 4 greedy decode
        steps through the serve steps must give the full forward's
        last-position logits (rtol 2e-3, atol 2e-4) and the same tokens;
@@ -46,11 +74,12 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
        version and ``F.scaled_dot_product_attention`` there, beside the
        bound and its schedule;
    the LM records go to ``chiprun_out/chip_smoke_lm.json``;
-7. prints a JSON line of every kernel: its launches in the main-path runs,
-   its largest error against its plain version, and the sums over those
+8. prints a JSON line of every kernel: its launches in the counted runs
+   (the three engine plans and the in-process distributed run), its
+   largest error against its plain version, and the sums over those
    launches of its time, its bound, and the plain and library times at
    each launch's shape;
-8. prints ``{"ok": true, "device": {...}}`` as the last line.
+9. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero, as does a machine without CUDA or a
 directory without the repository's ``src``.  Weights are random, made from
@@ -79,6 +108,9 @@ F32_RTOL, F32_ATOL = 1e-6, 1e-6
 # float session: cuDNN on the card and the CPU's convolution sum in other
 # orders over 54 layers; relative to the largest logit
 FLOAT_RTOL = 1e-4
+# torch kernels that open and close a trace that counts this repository's
+# kernels (pad_trace)
+PAD_KERNELS = 64
 
 
 def card_line() -> str:
@@ -104,19 +136,36 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def trace_calls(fn, n: int):
-    """Run ``fn`` ``n`` times under the profiler (no warm-up call).
-    Returns (name, device us) of every event on the card, the host wall us
-    of the traced calls, and the last call's result."""
+def pad_trace() -> None:
+    """Launch PAD_KERNELS small torch kernels (none of this repository's)
+    and wait for them.  Traces of this script have dropped kernels (a run
+    lost 5 of every trace of 240 launches), so a trace that counts this
+    repository's kernels begins and ends with these."""
+    import torch
+    x = torch.zeros(1024, device="cuda")
+    for _ in range(PAD_KERNELS):
+        x.add_(1)
+    torch.cuda.synchronize()
+
+
+def trace_calls(fn, n: int, pad: bool = False):
+    """Run ``fn`` ``n`` times under the profiler (no warm-up call), between
+    two ``pad_trace`` calls when ``pad``.  Returns (name, device us) of
+    every event on the card, the host wall us of the traced calls, and the
+    last call's result."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if pad:
+            pad_trace()
         t0 = time.perf_counter()
         for _ in range(n):
             out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        if pad:
+            pad_trace()
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == DeviceType.CUDA], wall_us, out
 
@@ -352,21 +401,21 @@ def check_launch(kernel, shape, gen, dev) -> tuple[dict, tuple]:
 OUR_KERNELS = ("qgemm_", "dwconv3x3_", "decode_attn_")
 
 
-def trace_device_ms(kernel_calls, per_shape: int = 5) -> list[float | None]:
-    """Device ms of one launch of each (kernels per launch, call, operands,
-    options) in ``kernel_calls``: one profiler trace of ``per_shape``
-    launches each, split in launch order; a launch's time is the sum of the
-    kernels its wrapper enqueues.  None for all when the trace does not
-    hold exactly that many of this repository's kernels per launch."""
+TRACE_CHUNK = 48        # launch shapes one profiler trace holds
+TRACE_TRIES = 3         # traces of a chunk before its shapes go without
+
+
+def _trace_chunk(kernel_calls, per_shape: int) -> list[float] | None:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad_trace()
         for _, fn, args, kw in kernel_calls:
             for _ in range(per_shape):
                 fn(*args, **kw)
-        torch.cuda.synchronize()
+        pad_trace()
     ours = sorted((e.time_range.start, e.time_range.elapsed_us())
                   for e in prof.events()
                   if e.device_type == DeviceType.CUDA
@@ -374,13 +423,33 @@ def trace_device_ms(kernel_calls, per_shape: int = 5) -> list[float | None]:
     counts = [per_shape * k for k, _, _, _ in kernel_calls]
     if len(ours) != sum(counts):
         print(f"device trace: {len(ours)} kernel events for {sum(counts)} "
-              f"kernels of {per_shape * len(kernel_calls)} launches; no "
-              f"device times")
-        return [None] * len(kernel_calls)
+              f"kernels of {per_shape * len(kernel_calls)} launches")
+        return None
     out, i = [], 0
     for c in counts:
         out.append(sum(us for _, us in ours[i:i + c]) / per_shape / 1e3)
         i += c
+    return out
+
+
+def trace_device_ms(kernel_calls, per_shape: int = 5) -> list[float | None]:
+    """Device ms of one launch of each (kernels per launch, call, operands,
+    options) in ``kernel_calls``: profiler traces of ``per_shape`` launches
+    each, TRACE_CHUNK shapes a trace padded by ``pad_trace``, split in
+    launch order; a launch's time is the sum of the kernels its wrapper
+    enqueues.  A trace that does not hold exactly that many of this
+    repository's kernels per launch is taken again, up to TRACE_TRIES
+    times; a chunk that never gets one has no device times (None), and its
+    shapes fall back to CUDA events."""
+    out = []
+    for i in range(0, len(kernel_calls), TRACE_CHUNK):
+        chunk = kernel_calls[i:i + TRACE_CHUNK]
+        got = None
+        for _ in range(TRACE_TRIES):
+            got = _trace_chunk(chunk, per_shape)
+            if got is not None:
+                break
+        out += got if got is not None else [None] * len(chunk)
     return out
 
 
@@ -392,32 +461,37 @@ OFF_PATH = [("qgemm", "classifier whole layer", (BATCH, 1280, 1000)),
              (1, 96, 58, 58, 2))]
 
 
-def kernel_phase(engines: dict, dev) -> tuple[dict, list[dict]]:
-    """Every distinct (kernel, shape) that the main-path plans launch, plus
-    ``OFF_PATH``: held against the plain version and timed.  Returns each
-    plan's launch list and one record per distinct launch shape, with the
-    layers and the launches per forward of each plan."""
+def kernel_phase(runs: dict, dev) -> list[dict]:
+    """Every distinct (kernel, shape) that the runs launch, plus
+    ``OFF_PATH``: held against the plain version and timed.  ``runs`` maps
+    each run to every launch it made, (kernel, layer, shape): one forward
+    of an engine plan (``path_launches``), or all requests of a distributed
+    run (``dist_launches``).  Returns one record per distinct launch shape,
+    with its layers, its launches in each run (``per_run``) and the paths
+    that made it (``path``: ``engine``, ``distributed``, both joined by
+    ``+``, or ``none`` for ``OFF_PATH``)."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(0)
-    launches = {mode: path_launches(eng, BATCH)
-                for mode, eng in engines.items()}
     # the one-launch depthwise form is held on the plans' own shard tables;
     # the neuron plan's must include a channel split between two shards
-    if not any(a[1] == b[0] for kernel, _, shape in launches["neuron"]
-               if kernel == "dwconv3x3" for a, b in zip(shape[5],
-                                                        shape[5][1:])):
+    if not any(a[1] == b[0] for kernel, _, shape in runs["neuron"]
+               if kernel == "dwconv3x3" and len(shape) == 6
+               for a, b in zip(shape[5], shape[5][1:])):
         raise AssertionError("no neuron shard table splits a channel")
     recs: dict[tuple, dict] = {}
-    for mode, items in launches.items():
+    for run, items in runs.items():
+        path = "distributed" if run in DIST_RUNS else "engine"
         for kernel, layer, shape in items:
             r = recs.setdefault((kernel, shape), dict(
-                layers=[], per_forward={}, on_path=True))
+                layers=[], per_run={}, path=path, on_path=True))
             if layer not in r["layers"]:
                 r["layers"].append(layer)
-            r["per_forward"][mode] = r["per_forward"].get(mode, 0) + 1
+            if path not in r["path"]:
+                r["path"] += "+" + path
+            r["per_run"][run] = r["per_run"].get(run, 0) + 1
     for kernel, layer, shape in OFF_PATH:
-        recs.setdefault((kernel, shape), dict(layers=[layer], per_forward={},
-                                              on_path=False))
+        recs.setdefault((kernel, shape), dict(layers=[layer], per_run={},
+                                              path="none", on_path=False))
     calls = []
     for (kernel, shape), r in recs.items():
         rec, call = check_launch(kernel, shape, gen, dev)
@@ -427,7 +501,7 @@ def kernel_phase(engines: dict, dev) -> tuple[dict, list[dict]]:
         r["device_ms"] = ms
     del calls
     torch.cuda.empty_cache()
-    return launches, list(recs.values())
+    return list(recs.values())
 
 
 def launch_ms(rec) -> float:
@@ -437,17 +511,18 @@ def launch_ms(rec) -> float:
         "event_ms"]
 
 
-def per_forward(recs, kernel, mode) -> dict:
-    """One forward's worth (batch BATCH, plan ``mode``) of ``kernel``:
-    launches and the sums over them of each per-launch time."""
-    rows = [r for r in recs if r["kernel"] == kernel and mode in
-            r["per_forward"]]
-    tot = {"launches": sum(r["per_forward"][mode] for r in rows),
+def per_run(recs, kernel, run) -> dict:
+    """One run's worth of ``kernel`` (a forward of batch BATCH of an engine
+    plan, or all requests of a distributed run): launches and the sums over
+    them of each per-launch time."""
+    rows = [r for r in recs if r["kernel"] == kernel and run in
+            r["per_run"]]
+    tot = {"launches": sum(r["per_run"][run] for r in rows),
            "shapes": len(rows)}
     for key, get in (("ms", launch_ms), ("plain_ms", lambda r: r["plain_ms"]),
                      ("bound_ms", lambda r: r["bound_ms"]),
                      ("library_ms", lambda r: r["library_ms"])):
-        tot[key] = sum(r["per_forward"][mode] * get(r) for r in rows)
+        tot[key] = sum(r["per_run"][run] * get(r) for r in rows)
     return tot
 
 
@@ -544,6 +619,265 @@ def float_path(model, xs, dev):
     if not np.allclose(ys, ys_cpu, rtol=FLOAT_RTOL, atol=atol):
         raise AssertionError(f"float path: max err {err} > {atol}")
     print(f"path {json.dumps(dict(mode='spatial float', max_abs_err=err))}")
+
+
+# -- distributed phases: planner, coordinator + workers, elastic ---------------
+
+RAM_CAP = 512 * 1024               # the planner's per-worker RAM cap (MCU)
+PLANNER_PIN = "mnv2_112@8"         # BENCH_executor.json's committed outcome
+DIST_RUNS = ("dist_spatial_process", "dist_kernel_inprocess", "elastic")
+DIST_TIMEOUT_S = 600
+ELASTIC_WORKERS = 4
+
+
+def planner_phase(model, qmodel, xs, dev):
+    """Plan ``mobilenet_v2_paper`` on ``Cluster.heterogeneous_demo(8)``
+    under the MCU RAM cap: the plan must be the committed one
+    (``BENCH_executor.json``, ``PLANNER_PIN``).  Its latency is the
+    planner's simulated MCU latency, a model output.  ``plan.compile`` on
+    the card then serves a batch of BATCH bit-exact with a CPU ``Session``
+    of the same split.  Returns the plan and its card session."""
+    import numpy as np
+    from repro_torch.api import Cluster, Objective, Planner, Session
+    want = json.loads((ROOT / "BENCH_executor.json").read_text())[
+        "planner"][PLANNER_PIN]
+    t0 = time.perf_counter()
+    plan = Planner(model, Cluster.heterogeneous_demo(8)).plan(
+        Objective(minimize="latency", ram_cap_bytes=RAM_CAP))
+    search_s = time.perf_counter() - t0
+    got = dict(plan_latency_s=round(plan.latency_s, 9),
+               max_peak_ram=int(plan.max_peak_ram), mode=plan.mode,
+               fusion=plan.fusion, transport=plan.transport,
+               overlap_saved_s=round(plan.overlap_saved_s, 9),
+               n_workers=plan.n_workers)
+    if got != {k: want[k] for k in got}:
+        raise AssertionError(f"planner: {got} is not {PLANNER_PIN} {want}")
+    sess = plan.compile(qmodel=qmodel, device=dev, max_batch=BATCH)
+    ys = sess.submit_many(xs)
+    cpu = Session(plan.split, qmodel=qmodel, device="cpu", max_batch=BATCH)
+    if not np.array_equal(ys, cpu.submit_many(xs)):
+        raise AssertionError("planner: plan.compile on the card != CPU")
+    rec = dict(pin=PLANNER_PIN, **got, simulated_mcu_latency_s=plan.latency_s,
+               search_s=search_s,
+               candidates_evaluated=plan.search_stats["candidates_evaluated"],
+               session_transport=sess.stats().transport, batch=len(xs),
+               bit_exact_vs_cpu=True)
+    print(f"planner {json.dumps(rec)}")
+    return plan, sess
+
+
+def dist_launches(split, qmodel) -> list[tuple[str, str, tuple]]:
+    """(kernel, layer, shape) of every kernel launch one request makes on
+    the workers of ``split``, read from their setup payloads' segment
+    specs (``segment_launches``)."""
+    from repro_torch.runtime.shards import build_worker_setup, segment_launches
+    out = []
+    for w in range(split.n_workers):
+        meta, arrays = build_worker_setup(split, qmodel, "int8", w)
+        for spec in meta["segments"]:
+            out += [(k, split.model.layers[i].name, shape)
+                    for k, shape, i in segment_launches(spec, arrays)]
+    return out
+
+
+def _log_tails(coord, n_bytes: int = 1500) -> str:
+    """The end of each spawned worker's log (``log_dir``)."""
+    if not coord.log_dir:
+        return ""
+    out = []
+    for path in sorted(Path(coord.log_dir).glob("worker*.log")):
+        out.append(f"--- {path.name}\n"
+                   + path.read_bytes()[-n_bytes:].decode(errors="replace"))
+    return "\n".join(out)
+
+
+async def _start(coord) -> None:
+    """Start ``coord``.  A spawned worker that exits before it is ready
+    fails the start at once (the coordinator alone would wait out its
+    setup timeout for it)."""
+    import asyncio
+    start = asyncio.ensure_future(coord.start())
+    while not start.done():
+        await asyncio.wait({start}, timeout=0.5)
+        dead = [w for w, h in coord.handles.items()
+                if h.proc is not None and h.proc.returncode is not None]
+        if dead and not start.done():
+            start.cancel()
+            await asyncio.gather(start, return_exceptions=True)
+            raise RuntimeError(f"worker(s) {dead} exited during setup")
+    start.result()
+
+
+def distributed_run(name, coord, xs, want, split, per_request) -> dict:
+    """Serve ``xs`` through ``coord`` (started here, closed after) and hold
+    its output to ``want`` bit for bit and its realized dependency edges to
+    the simulator's.  The launch counters are set to 0 once the workers are
+    ready and read after the last request: in-process workers must have
+    made exactly ``per_request`` (from the payloads) x requests; a
+    coordinator with worker processes launches no kernel itself."""
+    import asyncio
+
+    import numpy as np
+    from repro_torch.core.simulator import dependency_edges
+
+    async def drive():
+        try:
+            await _start(coord)
+            wrappers = counters()
+            for fn in wrappers.values():
+                fn.launches = 0
+            wrappers["qgemm"].weight_copies = 0
+            ys, compute_ms = [], []
+            t0 = time.perf_counter()
+            for x in xs:
+                ys.append(await coord.infer(x))
+                compute_ms.append(
+                    float(coord.last_timeline.compute_busy_s.sum()) * 1e3)
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+            return (ys, compute_ms, wall, launches, set(coord.measured_edges),
+                    coord.setup_s, wrappers["qgemm"].weight_copies)
+        except Exception as e:
+            raise RuntimeError(f"distributed {name}: {e}\n"
+                               f"{_log_tails(coord)}") from e
+        finally:
+            await coord.close()
+
+    ys, compute_ms, wall, launches, edges, setup_s, copies = asyncio.run(
+        asyncio.wait_for(drive(), DIST_TIMEOUT_S))
+    ys = np.stack(ys)
+    if ys.shape != want.shape or ys.dtype != want.dtype:
+        raise AssertionError(f"{name}: output {ys.shape} {ys.dtype}")
+    if not np.array_equal(ys, want):
+        raise AssertionError(f"{name}: distributed output != the card's "
+                             f"Session in {int((ys != want).sum())} places")
+    predicted = dependency_edges(split)
+    if not predicted <= edges:
+        raise AssertionError(f"{name}: {len(predicted - edges)} predicted "
+                             f"edges not realized")
+    expect = {k: sum(kk == k for kk, _, _ in per_request) * len(xs)
+              for k in launches}
+    inproc = coord.spawn == "inprocess"
+    if inproc and launches != expect:
+        raise AssertionError(f"{name}: workers launched {launches}, their "
+                             f"payloads list {expect}")
+    if not inproc and any(launches.values()):
+        raise AssertionError(f"{name}: the coordinator launched {launches}")
+    if copies:
+        raise AssertionError(f"{name}: {copies} weight copies")
+    rec = dict(
+        run=name, mode=split.mode, workers=split.n_workers,
+        spawn=coord.spawn, requests=len(xs), bitexact=True,
+        edges_realized=len(predicted & edges), edges_predicted=len(predicted),
+        setup_s=setup_s, ms_per_request=wall * 1e3 / len(xs),
+        worker_compute_ms_per_request=statistics.mean(compute_ms),
+        launches=launches,
+        launches_per_request={k: v / len(xs) for k, v in expect.items()
+                              if k in ("qgemm", "dwconv3x3")},
+        launches_per_request_from="counters" if inproc else "payloads")
+    print(f"distributed {json.dumps(rec)}")
+    return rec
+
+
+def distributed_phase(model, qmodel, xs, plan, psess, dev):
+    """The planner's plan over worker subprocesses on the card, then the
+    kernel-mode split of RATINGS over in-process workers (whose launches
+    the counters see).  Returns the two records and each run's launches
+    (every request's, for the shape checks)."""
+    from repro_torch.api import Session
+    from repro_torch.core import split_model
+    want = psess.submit_many(xs)
+    per_request = dist_launches(plan.split, qmodel)
+    logs = ROOT / "chiprun_out" / "workers"
+    spatial = distributed_run(
+        "dist_spatial_process",
+        psess.distributed(spawn="process", log_dir=str(logs)), xs, want,
+        plan.split, per_request)
+    ksplit = split_model(model, RATINGS, mode="kernel")
+    ksess = Session(ksplit, qmodel=qmodel, device=dev, max_batch=BATCH)
+    k_per_request = dist_launches(ksplit, qmodel)
+    kernel = distributed_run(
+        "dist_kernel_inprocess", ksess.distributed(spawn="inprocess"), xs,
+        ksess.submit_many(xs), ksplit, k_per_request)
+    for name, n in kernel["launches_per_request"].items():
+        if n <= 0:
+            raise AssertionError(f"in-process kernel run: no {name} launch")
+    return [spatial, kernel], {
+        "dist_spatial_process": per_request * len(xs),
+        "dist_kernel_inprocess": k_per_request * len(xs)}
+
+
+def elastic_phase(dev):
+    """An in-process ``ElasticCoordinator`` over ``mobilenet_v2_smoke`` on
+    ELASTIC_WORKERS workers of the card: a worker is killed while a request
+    is in flight; the request is served on the replanned survivors.  Every
+    output must equal the card's ``Session`` on its topology; the replan
+    must reship less than a full setup and hit the warm segment cache at
+    rate 1.0.  Returns the record and the launches of one request on each
+    topology."""
+    import asyncio
+
+    import numpy as np
+    from repro_torch.api import Objective, Session
+    from repro_torch.core import WorkerParams, split_model
+    from repro_torch.models import mobilenet_v2_smoke
+    from repro_torch.runtime import ElasticCluster, ElasticCoordinator
+    model = mobilenet_v2_smoke(seed=0)
+    rng = np.random.default_rng(4)
+    calib = [rng.standard_normal(model.input_shape).astype(np.float32)
+             for _ in range(2)]
+    qmodel = Session(split_model(model, np.ones(2)), calibration=calib,
+                     device="cpu").qmodel
+    xs = rng.standard_normal((4, *model.input_shape)).astype(np.float32)
+    cluster = ElasticCluster(
+        model, [WorkerParams() for _ in range(ELASTIC_WORKERS)],
+        objective=Objective(modes=("spatial",)), heartbeat_timeout=1e9)
+
+    async def drive():
+        async with ElasticCoordinator(cluster, qmodel, spawn="inprocess",
+                                      device=dev) as ec:
+            before = [await ec.infer(x) for x in xs[:2]]
+            split0, victim = ec.split, ec.physical_ids[0]
+            t0 = time.perf_counter()
+            pending = asyncio.ensure_future(ec.infer(xs[2]))
+            await asyncio.sleep(0)
+            await ec.inject_failure(0)
+            after = [await pending]
+            recovery_s = time.perf_counter() - t0
+            after.append(await ec.infer(xs[3]))
+            gone = victim not in cluster.plan_worker_ids
+            report = ec.reports[-1] if ec.reports else None
+            split1 = ec.split
+        leaked = [t for t in asyncio.all_tasks()
+                  if t is not asyncio.current_task() and not t.done()]
+        return before, after, split0, split1, report, recovery_s, gone, \
+            len(leaked)
+
+    before, after, split0, split1, report, recovery_s, gone, leaked = \
+        asyncio.run(asyncio.wait_for(drive(), DIST_TIMEOUT_S))
+    if report is None or not gone:
+        raise AssertionError("elastic: the kill did not replan")
+    for tag, split, ys, x in (("before", split0, before, xs[:2]),
+                              ("after", split1, after, xs[2:])):
+        want = Session(split, qmodel=qmodel, device=dev,
+                       max_batch=4).submit_many(x)
+        if not np.array_equal(np.stack(ys), want):
+            raise AssertionError(f"elastic {tag} the kill: != Session")
+    if not (report["reshipped_bytes"] < report["full_setup_bytes"]
+            and report["hit_rate"] == 1.0 and not leaked):
+        raise AssertionError(f"elastic: report {report}, leaked {leaked}")
+    rec = dict(model="mobilenet_v2_smoke", spawn="inprocess",
+               workers_before=split0.n_workers,
+               workers_after=split1.n_workers,
+               reshipped_bytes=report["reshipped_bytes"],
+               full_setup_bytes=report["full_setup_bytes"],
+               warm_hit_rate=report["hit_rate"],
+               cache_hits=report["cache_hits"],
+               expected_cache_hits=report["expected_cache_hits"],
+               replan_downtime_s=report["downtime_s"],
+               recovery_s=recovery_s, bitexact=True, leaked_tasks=leaked)
+    print(f"elastic {json.dumps(rec)}")
+    return rec, dist_launches(split0, qmodel) + dist_launches(split1, qmodel)
 
 
 # -- LM phases: qwen3-14b prefill -> greedy decode ----------------------------
@@ -756,18 +1090,25 @@ def lm_serve(dev) -> tuple[dict, dict]:
     return rec, live
 
 
-def kernel_device_ms(fn, prefix: str, per_call: int, n: int = 6) -> float:
+def kernel_device_ms(fn, prefix: str, per_call: int,
+                     n: int = 6) -> float | None:
     """Device ms of one call of ``fn``, which enqueues ``per_call`` kernels
     whose names start with ``prefix``: their sum over ``n`` calls traced by
-    the profiler, over n.  The trace may drop the first kernel after it
-    starts (one of five was missing in a run of this script), so it needs
-    all but one of them, and then averages over the kernels it saw."""
+    the profiler, over n, in a trace padded by ``pad_trace``.  A trace
+    has dropped a kernel (one of five was missing in a run of this
+    script), so it needs all but one of them, and then averages over the
+    kernels it saw.  A trace with fewer (one run's held none at all) is
+    taken again, up to TRACE_TRIES times; then the call has no device time
+    (None), and its caller uses the CUDA-event time."""
     fn()
-    events = [us for name, us in trace_calls(fn, n)[0] if prefix in name]
-    if len(events) < n * per_call - 1:
-        raise AssertionError(f"profiler saw {len(events)} {prefix} kernels "
-                             f"of {n * per_call}")
-    return sum(events) / len(events) * per_call / 1e3
+    for _ in range(TRACE_TRIES):
+        events = [us for name, us in trace_calls(fn, n, pad=True)[0]
+                  if prefix in name]
+        if len(events) >= n * per_call - 1:
+            return sum(events) / len(events) * per_call / 1e3
+        print(f"device trace: {len(events)} {prefix} kernels of "
+              f"{n * per_call}")
+    return None
 
 
 def _decode_bound(lens, k_, g, hd, item_q, item_kv) -> tuple[float, str]:
@@ -942,54 +1283,74 @@ def main() -> int:
     if (len(model.layers), model.input_shape, model.out_shape) != (
             54, (3, 112, 112), (1000, 1, 1)):
         raise AssertionError("mobilenet_v2_paper is not the paper's model")
-    modes = ("spatial", "kernel", "neuron")
-    engines = {mode: CompiledSplitExecutor(split_model(model, RATINGS,
-                                                       mode=mode), device=dev)
-               for mode in modes}
-    plan_launches, recs = kernel_phase(engines, dev)
-    del engines
-    # printed: the spatial plan's named layers, the flat plans' b1_dw
-    # shards and the off-path yardsticks; every shape is in the JSON file
-    named = {"stem", "b1_expand", "b16_project", "head_conv", "classifier",
-             "b1_dw", "b14_dw"}
-    for r in recs:
-        if not r["on_path"] or named & set(r["layers"]) and (
-                "spatial" in r["per_forward"] or "b1_dw" in r["layers"]):
-            print(f"kernel {json.dumps(r)}")
-    # each on-path shape's schedule beside its device ms, one short line
-    # each: qgemm M x K x N, tile height t, splits s; depthwise windows x C
-    # x H x W x stride (unpadded), channels c and output rows r of a CTA,
-    # shards z of the launch; grid g
-    for r in recs:
-        if r["on_path"]:
-            sch = r["schedule"]
-            split = (f"t{sch['tile'][0]} s{sch['splits']}"
-                     if r["kernel"] == "qgemm" else
-                     f"c{sch['c_tile']} r{sch['rows_tile']} "
-                     f"z{sch['shards']}")
-            print(f"sched {r['kernel'][:6]} "
-                  f"{'x'.join(map(str, r['shape'][:5]))} {split} "
-                  f"g{'x'.join(map(str, sch['grid']))} "
-                  f"{launch_ms(r):.5f}ms")
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke_shapes.json").write_text(json.dumps(
-        dict(card=card, batch=BATCH, shapes=recs), indent=1))
-
     rng = np.random.default_rng(0)
     calib = [rng.standard_normal(model.input_shape).astype(np.float32)
              for _ in range(2)]
     qmodel = Session(split_model(model, RATINGS, mode="spatial"),
                      calibration=calib, device="cpu").qmodel
     xs = rng.standard_normal((BATCH, *model.input_shape)).astype(np.float32)
+    modes = ("spatial", "kernel", "neuron")
+    engines = {mode: CompiledSplitExecutor(split_model(model, RATINGS,
+                                                       mode=mode), device=dev)
+               for mode in modes}
+    runs = {mode: path_launches(eng, BATCH) for mode, eng in engines.items()}
+    del engines
     names = ("qgemm", "dwconv3x3_bands", "dwconv3x3")
     paths = []
     for mode in modes:
-        expect = {k: sum(1 for kk, _, _ in plan_launches[mode] if kk == k)
+        expect = {k: sum(1 for kk, _, _ in runs[mode] if kk == k)
                   for k in names}
         expect["decode_attn"] = 0
         paths.append(serve_path(mode, model, qmodel, xs, dev, expect))
     float_path(model, xs, dev)
+
+    # the planner stack and the distributed runtime: the committed plan,
+    # served by worker processes on the card, the kernel-mode split by
+    # in-process workers, and an elastic run through a killed worker
+    plan, psess = planner_phase(model, qmodel, xs, dev)
+    dists, dist_runs = distributed_phase(model, qmodel, xs, plan, psess, dev)
+    del psess
+    elastic, elastic_launches = elastic_phase(dev)
+    runs.update(dist_runs, elastic=elastic_launches)
+    paths.append(dict(mode="dist_kernel_inprocess",
+                      launches=dists[1]["launches"]))
+
+    recs = kernel_phase(runs, dev)
+    # printed: the spatial plan's named layers, the flat plans' b1_dw
+    # shards and the off-path yardsticks; every shape is in the JSON file
+    named = {"stem", "b1_expand", "b16_project", "head_conv", "classifier",
+             "b1_dw", "b14_dw"}
+    engine_recs = [r for r in recs if "engine" in r["path"]]
+    for r in recs:
+        if not r["on_path"] or named & set(r["layers"]) and (
+                "spatial" in r["per_run"] or "b1_dw" in r["layers"]) and (
+                "engine" in r["path"]):
+            print(f"kernel {json.dumps(r)}")
+    # each engine shape's schedule beside its device ms, one short line
+    # each: qgemm M x K x N, tile height t, splits s; depthwise windows x C
+    # x H x W x stride (unpadded), channels c and output rows r of a CTA,
+    # shards z of the launch; grid g
+    for r in engine_recs:
+        sch = r["schedule"]
+        split = (f"t{sch['tile'][0]} s{sch['splits']}"
+                 if r["kernel"] == "qgemm" else
+                 f"c{sch['c_tile']} r{sch['rows_tile']} "
+                 f"z{sch['shards']}")
+        print(f"sched {r['kernel'][:6]} "
+              f"{'x'.join(map(str, r['shape'][:5]))} {split} "
+              f"g{'x'.join(map(str, sch['grid']))} "
+              f"{launch_ms(r):.5f}ms")
+    # the workers' shapes, summed per run: every one was bit-exact above
+    for run in DIST_RUNS:
+        for name in ("qgemm", "dwconv3x3"):
+            tot = per_run(recs, name, run)
+            print("dist_shapes " + json.dumps(dict(run=run, kernel=name,
+                                                   **tot)))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_shapes.json").write_text(json.dumps(
+        dict(card=card, batch=BATCH, requests=len(xs), shapes=recs,
+             distributed=dists, elastic=elastic), indent=1))
 
     # the LM serving path: (a) fp32 check, (b) bf16 run at full depth,
     # (c) the flash-decode kernel on the live cache and a yardstick shape
@@ -1007,19 +1368,22 @@ def main() -> int:
     replaces = {"qgemm": "src/repro/kernels/qgemm/qgemm.py:63",
                 "dwconv3x3_bands": "src/repro/kernels/dwconv/dwconv.py:133",
                 "dwconv3x3": "src/repro/kernels/dwconv/dwconv.py:96"}
-    # each kernel's numbers cover the launches of all three main-path
-    # runs: launches from the counters, each time the sum over those
-    # launches of its per-launch time at the launch's own shape
+    # each kernel's numbers cover the launches of every counted run (the
+    # three engine plans, the in-process distributed run): launches from
+    # the counters, each time the sum over those launches of its
+    # per-launch time at the launch's own shape
+    counted = [p["mode"] for p in paths]
     line = []
     for name in names:
-        fwd = {mode: per_forward(recs, name, mode) for mode in modes}
+        fwd = {run: per_run(recs, name, run) for run in counted}
         for p in paths:
             if fwd[p["mode"]]["launches"] != p["launches"][name]:
                 raise AssertionError(f"{name}: {p['mode']} counts differ")
             print("forward " + json.dumps(dict(kernel=name, mode=p["mode"],
                                                **fwd[p["mode"]])))
         rows = [r for r in recs if r["kernel"] == name and r["on_path"]]
-        by_bytes = sum(r["bound_ms"] * sum(r["per_forward"].values())
+        by_bytes = sum(r["bound_ms"] * sum(r["per_run"].get(run, 0)
+                                           for run in counted)
                        for r in rows if r["bound_by"] == "bytes")
         line.append(dict(
             name=name, route="cuda", source=source[name],

@@ -1,4 +1,4 @@
-"""`Session`: a serving handle over a split plan — port of
+"""`Session`: a serving handle over a plan — port of
 ``repro/api/session.py``.
 
 Wraps :class:`~repro_torch.core.executor.CompiledSplitExecutor` with the
@@ -12,9 +12,12 @@ independently, so a padded slot cannot influence real samples —
 ``submit_many`` output is bit-identical to ``run_batch`` over the same
 inputs (tested in int8).
 
-This slice serves a bare core :class:`SplitPlan`.  A planner ``Plan`` and
-``Session.distributed`` wait for the port's planner and runtime slices and
-raise :class:`NotImplementedError` until then.
+A session serves a planner :class:`~repro_torch.api.plan.Plan` (the normal
+path: it carries the plan's transport and search stats into
+:class:`SessionStats`) or a bare core :class:`SplitPlan`.
+:meth:`Session.distributed` hands the same plan and quantization to the
+port's distributed runtime (:class:`~repro_torch.runtime.Coordinator`, or
+:class:`~repro_torch.runtime.ElasticCoordinator` with ``elastic=True``).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from ..core.executor import (CompiledSplitExecutor, reference_forward,
                              resolve_device)
 from ..core.quantize import QuantizedModel, calibrate_scales, quantize_model
 from ..core.splitting import SplitPlan
+from .plan import Plan
 
 PRECISIONS = ("int8", "float")
 _DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32)
@@ -106,10 +110,9 @@ class SessionStats:
     throughput_rps: float           # requests / wall_s
     mean_latency_s: float           # wall_s / batches (per-dispatch latency)
     per_bucket: dict[int, int]      # bucket size -> dispatch count
-    # deployment context from a planner Plan (defaults when serving a bare
-    # core SplitPlan, the only kind the port serves yet): the transport
-    # policy the plan was costed under and the seconds/inference the
-    # planner predicts pipelining saves vs serial
+    # deployment context from the plan (defaults when serving a bare
+    # core SplitPlan): the transport policy the plan was costed under and
+    # the seconds/inference the planner predicts pipelining saves vs serial
     transport: str = "serial"
     predicted_overlap_saved_s: float = 0.0
     # rolling dispatch-latency percentiles over the last _ROLLING_WINDOW
@@ -119,8 +122,9 @@ class SessionStats:
     latency_p99_s: float = float("nan")
     per_bucket_p50_s: dict[int, float] = dataclasses.field(default_factory=dict)
     per_bucket_p99_s: dict[int, float] = dataclasses.field(default_factory=dict)
-    # plan-search telemetry carried over from a planner Plan (zeros/NaN
-    # when serving a bare SplitPlan)
+    # plan-search telemetry carried over from the Plan this session serves
+    # (core.search.SearchStats; zeros/NaN when serving a bare SplitPlan or
+    # a plan deserialized from a pre-search-stats payload)
     search_candidates_evaluated: int = 0
     search_cache_hit_rate: float = float("nan")
     search_wall_s: float = float("nan")
@@ -229,6 +233,10 @@ class InflightDispatch:
 class Session:
     """Micro-batched serving over a split plan on one device.
 
+    Accepts a :class:`~repro_torch.api.plan.Plan` (the normal path —
+    carries cluster and search context) or a bare core :class:`SplitPlan`
+    (benchmarks/tests).
+
     ``precision="int8"`` builds the W8A8 deployment: a supplied ``qmodel``
     wins, else ``calibration`` activations (or ``calibration_samples`` seeded
     random inputs) calibrate the scales.  ``precision="float"`` serves fp32.
@@ -237,7 +245,7 @@ class Session:
     unless the caller passes another (the tests pass ``"cpu"``).
     """
 
-    def __init__(self, plan: SplitPlan, *, precision: str = "int8",
+    def __init__(self, plan: Plan | SplitPlan, *, precision: str = "int8",
                  qmodel: QuantizedModel | None = None,
                  calibration: list[np.ndarray] | None = None,
                  calibration_samples: int = 4, seed: int = 0, device=None,
@@ -245,9 +253,10 @@ class Session:
         if precision not in PRECISIONS:
             raise ValueError(
                 f"unknown precision {precision!r} (want one of {PRECISIONS})")
+        self.plan = plan if isinstance(plan, Plan) else None
         self.split = _split_plan(plan)
-        self.plan = None    # a planner Plan, once the planner slice lands
-        self.transport = "serial"
+        self.transport = (self.plan.transport if self.plan is not None
+                          else "serial")
         self.model = self.split.model
         self.precision = precision
         self.device = resolve_device(device)
@@ -397,7 +406,7 @@ class Session:
         return len(self._pending)
 
     # -- elastic replan ------------------------------------------------------
-    def replan(self, plan: SplitPlan) -> None:
+    def replan(self, plan: Plan | SplitPlan) -> None:
         """Swap this session onto a new plan for the *same* model, keeping
         the quantization, stats, buckets, and queued tickets.
 
@@ -407,23 +416,53 @@ class Session:
         Pending tickets simply flush under the new plan; output stays
         bit-exact because the qmodel is shared.
         """
+        new_plan = plan if isinstance(plan, Plan) else None
         new_split = _split_plan(plan)
         if new_split.model is not self.model and (
                 tuple(new_split.model.input_shape)
                 != tuple(self.model.input_shape)):
             raise ValueError("replan target was built for a different model")
+        self.plan = new_plan
         self.split = new_split
+        self.transport = (new_plan.transport if new_plan is not None
+                          else "serial")
         self.model = new_split.model
         self.engine = CompiledSplitExecutor(new_split, self.qmodel,
                                             device=self.device)
 
     # -- distributed serving -------------------------------------------------
-    def distributed(self, **kwargs) -> "object":
-        """The reference's coordinator over this session's plan; it waits
-        for the port's runtime slice."""
-        raise NotImplementedError(
-            "Session.distributed waits for the runtime slice of the port "
-            "(repro/runtime/ is not ported yet)")
+    def distributed(self, *, elastic: bool = False, workers=None,
+                    objective=None, **kwargs) -> "object":
+        """A :class:`~repro_torch.runtime.Coordinator` over this session's
+        plan and quantization (same qmodel, so distributed output is
+        bit-identical to this session), on this session's device unless
+        ``device=`` says otherwise.  Caller drives its async lifecycle::
+
+            async with sess.distributed(spawn="process") as coord:
+                y = await coord.infer(x)
+
+        With ``elastic=True`` (requires ``workers``: the
+        :class:`~repro_torch.core.allocation.WorkerParams` of the physical
+        fleet), returns an :class:`~repro_torch.runtime.ElasticCoordinator`
+        that re-plans and serves through worker failure, demotion, and
+        rejoin::
+
+            async with sess.distributed(elastic=True, workers=ws) as ec:
+                y = await ec.infer(x)      # survives churn
+        """
+        kwargs.setdefault("device", self.device)
+        if elastic:
+            if workers is None:
+                raise ValueError("distributed(elastic=True) needs workers=")
+            from ..runtime.elastic import ElasticCluster
+            from ..runtime.replan import ElasticCoordinator
+            cluster = ElasticCluster(self.model, list(workers),
+                                     objective=objective)
+            return ElasticCoordinator(cluster, self.qmodel,
+                                      precision=self.precision, **kwargs)
+        from ..runtime.coordinator import Coordinator
+        return Coordinator(self.split, self.qmodel,
+                           precision=self.precision, **kwargs)
 
     # -- observability -------------------------------------------------------
     def dispatch_latency_s(self, bucket: int | None = None,
@@ -434,6 +473,8 @@ class Session:
         return self._rolling.percentile(q, key=bucket)
 
     def stats(self) -> SessionStats:
+        search_stats = (getattr(self.plan, "search_stats", None)
+                        if self.plan is not None else None)
         return SessionStats(
             requests=self._requests, batches=self._batches,
             padded=self._padded, wall_s=self._wall_s,
@@ -443,19 +484,25 @@ class Session:
                             if self._batches else 0.0),
             per_bucket=dict(self._per_bucket),
             transport=self.transport,
+            predicted_overlap_saved_s=(self.plan.overlap_saved_s
+                                       if self.plan is not None else 0.0),
             latency_p50_s=self._rolling.percentile(50),
             latency_p99_s=self._rolling.percentile(99),
             per_bucket_p50_s={b: self._rolling.percentile(50, key=b)
                               for b in self._rolling.keys()},
             per_bucket_p99_s={b: self._rolling.percentile(99, key=b)
-                              for b in self._rolling.keys()})
+                              for b in self._rolling.keys()},
+            search_candidates_evaluated=(search_stats or {}).get(
+                "candidates_evaluated", 0),
+            search_cache_hit_rate=(search_stats or {}).get(
+                "cache_hit_rate", float("nan")),
+            search_wall_s=(search_stats or {}).get(
+                "search_wall_s", float("nan")))
 
 
 def _split_plan(plan) -> SplitPlan:
-    if isinstance(plan, SplitPlan):
-        return plan
-    if hasattr(plan, "split"):
-        raise NotImplementedError(
-            "a planner Plan waits for the planner slice of the port "
-            "(repro/api/plan.py is not ported yet): pass its SplitPlan")
-    raise TypeError("plan must be a repro_torch core SplitPlan")
+    split = plan.split if isinstance(plan, Plan) else plan
+    if not isinstance(split, SplitPlan):
+        raise TypeError("plan must be a repro_torch.api.Plan or a core "
+                        "SplitPlan")
+    return split

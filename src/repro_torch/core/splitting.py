@@ -33,8 +33,7 @@ Beyond the three uniform modes, :func:`split_model_mixed` builds a
 subset) per fused block, so the early high-resolution stages can run spatial
 while the late channel-heavy stages run kernel/neuron — the regime split
 MCUNetV2 exploits.  The per-block assignment is searched by
-``search_mixed_assignment`` in the reference's ``core/mixed.py`` (the
-planner slice of the port).
+:func:`repro_torch.core.mixed.search_mixed_assignment`.
 
 Port copy of ``repro/core/splitting.py`` (numpy only, no torch): the port cannot import
 the reference, whose package pulls in JAX, so it carries this copy and

@@ -343,6 +343,97 @@ def test_session_on_card_equals_cpu(cuda, mode):
     assert qgemm.launches > before
 
 
+def _smoke_plan_and_qmodel(mode):
+    model = mobilenet_v2_smoke()
+    rng = np.random.default_rng(0)
+    calib = [rng.standard_normal(model.input_shape).astype(np.float32)
+             for _ in range(2)]
+    if mode == "mixed":
+        n = len(T.group_blocks(model))
+        plan = T.split_model_mixed(
+            model, RATINGS, ("spatial",) * (n // 2) + ("kernel",) * (n - n // 2))
+    else:
+        plan = T.split_model(model, RATINGS, mode=mode)
+    cpu = Session(plan, calibration=calib, device="cpu", max_batch=4)
+    return model, plan, cpu.qmodel
+
+
+def _launch_counts():
+    return (qgemm.launches, dwconv3x3.launches, dwconv3x3_bands.launches)
+
+
+def _expected_counts(launches):
+    return (sum(k == "qgemm" for k, *_ in launches),
+            sum(k == "dwconv3x3" for k, *_ in launches), 0)
+
+
+@pytest.mark.parametrize("mode", ["spatial", "kernel", "neuron", "mixed"])
+def test_worker_segments_on_card_equal_cpu(cuda, mode):
+    """Every segment of every worker's setup gives on the card what it
+    gives on the CPU, bit for bit, and launches exactly the kernels its
+    spec lists (``segment_launches``): one kernel per conv, none taking a
+    plain version."""
+    from repro_torch.runtime.shards import (build_segment_fns,
+                                            build_worker_setup,
+                                            segment_launches)
+    _, plan, qmodel = _smoke_plan_and_qmodel(mode)
+    rng = np.random.default_rng(1)
+    for w in range(plan.n_workers):
+        meta, arrays = build_worker_setup(plan, qmodel, "int8", w)
+        gpu = build_segment_fns(meta, arrays, device=cuda)
+        cpu = build_segment_fns(meta, arrays, device="cpu")
+        for spec in meta["segments"]:
+            if spec["kind"] == "skip":
+                continue
+            seg = gpu[spec["gi"]]
+            x = rng.integers(-127, 128, seg.input_shape).astype(np.int8)
+            before = _launch_counts()
+            y = seg.fn(x).cpu().numpy()
+            delta = tuple(a - b for a, b in zip(_launch_counts(), before))
+            assert delta == _expected_counts(segment_launches(spec, arrays))
+            np.testing.assert_array_equal(y, cpu[spec["gi"]].fn(x).numpy())
+
+
+@pytest.mark.parametrize("mode", ["spatial", "kernel", "mixed"])
+def test_distributed_inprocess_on_card_equals_session(cuda, mode):
+    """In-process workers on the card serve bit-exact with the card's
+    ``Session``, realize every predicted edge, and over one request make
+    exactly the kernel launches the setup payloads list: no worker conv
+    reaches the float64 oracle or a plain version."""
+    import asyncio
+
+    from repro_torch.core.simulator import dependency_edges
+    from repro_torch.runtime import Coordinator, run_distributed
+    from repro_torch.runtime.shards import (build_worker_setup,
+                                            segment_launches)
+    model, plan, qmodel = _smoke_plan_and_qmodel(mode)
+    sess = Session(plan, qmodel=qmodel, device=cuda, max_batch=4)
+    rep = run_distributed(plan, qmodel, reference=sess, spawn="inprocess",
+                          n_requests=2)
+    assert rep.bitexact and rep.edges_superset
+    launches = []
+    for w in range(plan.n_workers):
+        meta, arrays = build_worker_setup(plan, qmodel, "int8", w)
+        for spec in meta["segments"]:
+            launches += segment_launches(spec, arrays)
+    x = np.random.default_rng(2).standard_normal(
+        model.input_shape).astype(np.float32)
+
+    async def one_request():
+        async with Coordinator(plan, qmodel, spawn="inprocess",
+                               device=cuda) as coord:
+            before = _launch_counts()
+            y = await coord.infer(x)
+            after = _launch_counts()
+            return y, tuple(a - b for a, b in zip(after, before)), \
+                coord.measured_edges
+    y, delta, edges = asyncio.run(asyncio.wait_for(one_request(), 240))
+    assert delta == _expected_counts(launches)
+    assert delta[0] > 0 and delta[1] > 0
+    np.testing.assert_array_equal(y, sess.run(x))
+    assert dependency_edges(plan) <= edges
+
+
 def _decode_inputs(rng, b, k, g, hd, s, dev, q_dtype, kv_dtype):
     q = torch.from_numpy(rng.standard_normal((b, 1, k, g, hd)).astype(
         np.float32)).to(dev, q_dtype)

@@ -20,6 +20,14 @@ LM_SLICE = ("configs/base.py", "configs/__init__.py", "configs/qwen3_14b.py",
             "train/serve.py", "kernels/decode_attn/ref.py",
             "kernels/decode_attn/decode_attn.py",
             "kernels/decode_attn/ops.py", "convert.py")
+# the planner and runtime slice's modules, likewise
+PLANNER_RUNTIME_SLICE = (
+    "core/memory.py", "core/simulator.py", "core/mixed.py", "core/search.py",
+    "api/cluster.py", "api/plan.py", "api/planner.py", "api/session.py",
+    "api/__init__.py", "core/__init__.py", "runtime/__init__.py",
+    "runtime/protocol.py", "runtime/shards.py", "runtime/worker.py",
+    "runtime/coordinator.py", "runtime/validate.py", "runtime/elastic.py",
+    "runtime/replan.py", "serve/admission.py")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -72,7 +80,7 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
     assert '"ok"' not in proc.stdout
 
 
-@pytest.mark.parametrize("rel", LM_SLICE)
+@pytest.mark.parametrize("rel", LM_SLICE + PLANNER_RUNTIME_SLICE)
 def test_lm_slice_module_present_and_clean(rel):
     path = PORT / rel
     assert path in FILES

@@ -268,12 +268,31 @@ class TestValidation:
 
     def test_planner_plan_and_distributed_wait_for_later_slices(
             self, plan, qmodel):
+        """Both landed with the planner and runtime slices: an object that
+        only looks like a plan is refused, a port ``Plan`` is served, and
+        ``distributed()`` builds the port's coordinator on the session's
+        device."""
+        from repro_torch.api import Cluster, Plan
+        from repro_torch.runtime import Coordinator
+
         class PlannerPlan:          # what a repro.api.Plan looks like
             split = plan
-        with pytest.raises(NotImplementedError, match="planner slice"):
+        with pytest.raises(TypeError, match="Plan"):
             Session(PlannerPlan(), qmodel=qmodel, device="cpu")
-        with pytest.raises(NotImplementedError, match="runtime slice"):
-            _session(plan, qmodel).distributed()
+        cluster = Cluster.homogeneous(len(RATINGS))
+        planned = Plan(model=plan.model, cluster=cluster, objective=None,
+                       mode=plan.mode, fusion="block", transport="pipelined",
+                       worker_indices=tuple(range(len(RATINGS))),
+                       ratings=np.asarray(RATINGS), split=plan,
+                       latency_s=0.0, comp_s=0.0, comm_s=0.0, comm_bytes=0,
+                       peak_ram=np.zeros(3, np.int64),
+                       weight_bytes=np.zeros(3, np.int64), score=0.0)
+        session = Session(planned, qmodel=qmodel, device="cpu")
+        assert session.plan is planned and session.split is plan
+        assert session.stats().transport == "pipelined"
+        coord = _session(plan, qmodel).distributed(spawn="inprocess")
+        assert isinstance(coord, Coordinator)
+        assert coord.device == torch.device("cpu")
 
     def test_no_device_raises_without_cuda(self, plan, qmodel, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
