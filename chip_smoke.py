@@ -17,7 +17,8 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
    one launch, and CUDA events), plain version and a library call there;
    prints each shape's schedule (tile, splits, grid) beside its time; all
    shapes go to ``chiprun_out/chip_smoke_shapes.json``.  This step runs
-   after step 6, over the engine's and the workers' launches together;
+   after step 7, over the engine's, the workers' and the server's launches
+   together (``path``: ``engine``, ``distributed``, ``serving``);
 3. serves int8 MobileNetV2 at the paper's full width (112x112x3, 1000
    classes, 54 layers) split spatially across 8 workers of unequal ratings
    through ``Session.submit_many`` on the card, and requires the output to
@@ -54,7 +55,24 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
    with the engine's shapes in step 2 (``path: "distributed"`` in
    ``chiprun_out/chip_smoke_shapes.json``; ``dist_shapes`` lines sum
    each run);
-7. the LM serving path, ``qwen3-14b`` at its published width:
+7. the serving slice (``serving`` line), with every launch counter at 0:
+   one ``repro_torch.serve.Server(max_inflight=2)`` hosts two int8
+   tenants at full width, A = ``mobilenet_v2_paper`` on the spatial split
+   of the 8 ratings above and B = ``mobilenet_v2`` at 96x96 on a
+   neuron-mode split over 4 MCUs rated (3, 1, 2, 0.5) with an SLO of p99
+   <= 250 ms, each with the constants of one seed-0 calibration on the
+   card; 32 requests a tenant through ``Server.submit`` must equal
+   ``Session.run`` byte for byte; then each tenant's saturation
+   throughput, 3 s of open-loop Poisson load at 0.4x of it (no failed
+   ticket), and 3 s of tenant B at 2x (it must shed, every rejection a
+   typed ``Overloaded`` counted by reason, the accepted p99 <= 1 s); the
+   counters must then show ``qgemm`` and ``dwconv3x3_bands`` (A) and
+   ``dwconv3x3`` (B) launched; last, each tenant's dispatch p50 at bucket 8
+   at saturation under ``max_inflight`` 1 and 2.  A ``dw_many_shards`` line
+   follows: a neuron-mode split of ``mobilenet_v2_smoke`` over 72 workers,
+   whose 5 depthwise layers (72 shards each) take two launches each,
+   every table equal to the plain version and the batch equal to the CPU's;
+8. the LM serving path, ``qwen3-14b`` at its published width:
    (a) 2 layers in float32 with TF32 off: prefill and 4 greedy decode
        steps through the serve steps must give the full forward's
        last-position logits (rtol 2e-3, atol 2e-4) and the same tokens;
@@ -74,12 +92,13 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
        version and ``F.scaled_dot_product_attention`` there, beside the
        bound and its schedule;
    the LM records go to ``chiprun_out/chip_smoke_lm.json``;
-8. prints a JSON line of every kernel: its launches in the counted runs
+9. prints a JSON line of every kernel: its launches in the counted runs
    (the three engine plans and the in-process distributed run), its
    largest error against its plain version, and the sums over those
    launches of its time, its bound, and the plain and library times at
-   each launch's shape;
-9. prints ``{"ok": true, "device": {...}}`` as the last line.
+   each launch's shape; a CNN kernel also carries its launches in the
+   serving run (``serving_launches``);
+10. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero, as does a machine without CUDA or a
 directory without the repository's ``src``.  Weights are random, made from
@@ -480,7 +499,8 @@ def kernel_phase(runs: dict, dev) -> list[dict]:
         raise AssertionError("no neuron shard table splits a channel")
     recs: dict[tuple, dict] = {}
     for run, items in runs.items():
-        path = "distributed" if run in DIST_RUNS else "engine"
+        path = ("distributed" if run in DIST_RUNS else
+                "serving" if run.startswith("serving") else "engine")
         for kernel, layer, shape in items:
             r = recs.setdefault((kernel, shape), dict(
                 layers=[], per_run={}, path=path, on_path=True))
@@ -878,6 +898,246 @@ def elastic_phase(dev):
                recovery_s=recovery_s, bitexact=True, leaked_tasks=leaked)
     print(f"elastic {json.dumps(rec)}")
     return rec, dist_launches(split0, qmodel) + dist_launches(split1, qmodel)
+
+
+# -- serving phase: the multi-tenant server over the card's sessions ----------
+
+SERVE_RATINGS = (3.0, 1.0, 2.0, 0.5)   # tenant B's 4 MCUs (the example's)
+SERVE_B_HW = (96, 96)
+SERVE_MAX_BATCH = 8
+SERVE_REQUESTS = 32                 # per tenant, held against Session.run
+SERVE_BURST = 128                   # requests of a saturation burst
+SERVE_STEADY_S = 3.0
+SERVE_OVERLOAD_S = 3.0
+SERVE_P99_TARGET_S = 0.25           # tenant B's SLO
+SERVE_P99_BOUND_S = 1.0             # accepted-tail bound under 2x overload
+MANY_WORKERS = 72                   # dw_many_shards: > MAX_SHARDS shards
+
+
+class _ShedCounter:
+    """A server as the load generator sees it (``running``, ``submit``),
+    counting each typed ``Overloaded`` by its reason."""
+
+    def __init__(self, server):
+        import collections
+        self.server = server
+        self.reasons = collections.Counter()
+
+    @property
+    def running(self) -> bool:
+        return self.server.running
+
+    def submit(self, tenant, x):
+        from repro_torch.serve import Overloaded
+        try:
+            return self.server.submit(tenant, x)
+        except Overloaded as e:
+            self.reasons[e.reason] += 1
+            raise
+
+
+def _serving_server(tenants, qmodels, max_inflight, dev):
+    from repro_torch.serve import SLO, Server
+    srv = Server(max_inflight=max_inflight)
+    for name, (plan, slo) in tenants.items():
+        srv.add_tenant(name, plan, precision="int8", qmodel=qmodels[name],
+                       max_batch=SERVE_MAX_BATCH, device=dev,
+                       slo=SLO(p99_target_s=slo, queue_cap=1024))
+    return srv
+
+
+def serving_phase(model, dev):
+    """Two tenants on one ``Server(max_inflight=2)`` at full width, int8:
+    A = ``model`` (``mobilenet_v2_paper``) on the spatial split of RATINGS,
+    B = ``mobilenet_v2(input_hw=(96, 96))`` on a neuron-mode split of
+    SERVE_RATINGS with SLO p99 <= SERVE_P99_TARGET_S; their int8 constants
+    from one seed-0 calibration each on the card, made before ``start()``.
+    With every launch counter at 0: SERVE_REQUESTS requests a tenant through
+    ``Server.submit`` must equal ``Session.run`` byte for byte; then each
+    tenant's ``saturation_throughput``, open-loop Poisson at 0.4x of it for
+    SERVE_STEADY_S (no failure), and B at 2x its saturation for
+    SERVE_OVERLOAD_S (typed shedding counted by reason, accepted p99 <=
+    SERVE_P99_BOUND_S).  The counters read then must show ``qgemm``,
+    ``dwconv3x3_bands`` (A) and ``dwconv3x3`` (B).  Last, each tenant's
+    dispatch p50 at bucket 8 at saturation under max_inflight 1 and 2 (the
+    dispatch's own device time).  Returns the record and the launches of
+    one forward at each bucket the tenants dispatched (for the shape
+    checks)."""
+    import numpy as np
+    from repro_torch.api import Session
+    from repro_torch.core import split_model
+    from repro_torch.models import mobilenet_v2
+    from repro_torch.serve import run_open_loop, saturation_throughput
+    t_phase = time.perf_counter()
+    model_b = mobilenet_v2(input_hw=SERVE_B_HW, seed=0)
+    tenants = {"a": (split_model(model, RATINGS, mode="spatial"), None),
+               "b": (split_model(model_b, SERVE_RATINGS, mode="neuron"),
+                     SERVE_P99_TARGET_S)}
+    qmodels = {name: Session(plan, precision="int8", seed=0,
+                             device=dev).qmodel
+               for name, (plan, _) in tenants.items()}
+    rng = np.random.default_rng(5)
+    xs = {name: rng.standard_normal((SERVE_REQUESTS, *plan.model.input_shape))
+          .astype(np.float32) for name, (plan, _) in tenants.items()}
+    want = {}
+    for name, (plan, _) in tenants.items():
+        oracle = Session(plan, qmodel=qmodels[name], device=dev,
+                         max_batch=SERVE_MAX_BATCH)
+        want[name] = [oracle.run(x) for x in xs[name]]
+    srv = _serving_server(tenants, qmodels, 2, dev)
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    shed = _ShedCounter(srv)
+    with srv:
+        tickets = {name: [] for name in tenants}
+        for i in range(SERVE_REQUESTS):
+            for name in tenants:
+                tickets[name].append(srv.submit(name, xs[name][i]))
+        for name in tenants:
+            for i, t in enumerate(tickets[name]):
+                got = t.result(timeout=120.0)
+                if (got.dtype != want[name][i].dtype
+                        or got.tobytes() != want[name][i].tobytes()):
+                    raise AssertionError(f"serving: tenant {name} request "
+                                         f"{i} != Session.run")
+        probe = {name: xs[name][0] for name in tenants}
+        makers = {name: (lambda x=x: x) for name, x in probe.items()}
+        sat = {name: saturation_throughput(srv, name, makers[name],
+                                           n_requests=SERVE_BURST)
+               for name in tenants}
+        steady = run_open_loop(srv, {n: 0.4 * r for n, r in sat.items()},
+                               makers, duration_s=SERVE_STEADY_S, seed=1)
+        for name, r in steady.items():
+            if r.failed or r.completed == 0 or r.completed != r.accepted:
+                raise AssertionError(f"serving steady: {r}")
+        rejected_before = srv.stats("b").rejected
+        over = run_open_loop(shed, {"b": 2.0 * sat["b"]}, {"b": makers["b"]},
+                             duration_s=SERVE_OVERLOAD_S, seed=2)["b"]
+        qos = {name: srv.stats(name) for name in tenants}
+    launches = {name: wrappers[name].launches
+                for name in ("qgemm", "dwconv3x3_bands", "dwconv3x3")}
+    if not over.rejected > 0:
+        raise AssertionError(f"serving overload shed nothing: {over}")
+    if (sum(shed.reasons.values()) != over.rejected
+            or qos["b"].rejected - rejected_before != over.rejected
+            or not set(shed.reasons) <= {"slo", "queue_cap"}):
+        raise AssertionError(f"serving overload: rejections {over.rejected} "
+                             f"vs typed {dict(shed.reasons)}")
+    if over.failed or over.completed != over.accepted:
+        raise AssertionError(f"serving overload: {over}")
+    if not over.p99_s <= SERVE_P99_BOUND_S:
+        raise AssertionError(f"serving overload: accepted p99 {over.p99_s}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"serving launched no {name}: {launches}")
+    buckets = {name: sorted(srv.session(name).stats().per_bucket)
+               for name in tenants}
+    engines = {name: srv.session(name).engine for name in tenants}
+    del srv
+
+    # the dispatch's own time at bucket 8 at saturation, one pipeline
+    # depth after the other (fresh sessions: the constants are cached)
+    dispatch_p50 = {}
+    for depth in (1, 2):
+        srv = _serving_server(tenants, qmodels, depth, dev)
+        with srv:
+            rates = {name: saturation_throughput(srv, name, makers[name],
+                                                 n_requests=SERVE_BURST,
+                                                 repeats=2)
+                     for name in tenants}
+        dispatch_p50[f"max_inflight_{depth}"] = {
+            name: dict(ms=srv.session(name).dispatch_latency_s(bucket=8)
+                       * 1e3, saturation_rps=rates[name])
+            for name in tenants}
+        del srv
+
+    def load(r):
+        return dict(offered_rps=r.offered_rps, submitted=r.submitted,
+                    accepted=r.accepted, rejected=r.rejected,
+                    completed=r.completed, failed=r.failed,
+                    p50_ms=r.p50_s * 1e3, p99_ms=r.p99_s * 1e3,
+                    throughput_rps=r.throughput_rps,
+                    rejection_rate=r.rejection_rate)
+
+    rec = dict(
+        tenants={
+            "a": dict(model="mobilenet_v2_paper", input=list(
+                model.input_shape), split="spatial", workers=len(RATINGS)),
+            "b": dict(model="mobilenet_v2", input=list(model_b.input_shape),
+                      split="neuron", workers=len(SERVE_RATINGS),
+                      p99_target_ms=SERVE_P99_TARGET_S * 1e3)},
+        max_batch=SERVE_MAX_BATCH, max_inflight=2,
+        bit_exact_vs_session_run=True, requests_per_tenant=SERVE_REQUESTS,
+        saturation_rps=sat,
+        steady={name: load(r) for name, r in steady.items()},
+        overload=dict(load(over), reasons=dict(shed.reasons),
+                      p99_bound_ms=SERVE_P99_BOUND_S * 1e3),
+        launches=launches, buckets=buckets, dispatch_p50=dispatch_p50,
+        qos={name: dict(latency_p50_ms=q.latency_p50_s * 1e3,
+                        latency_p99_ms=q.latency_p99_s * 1e3,
+                        completed=q.completed, rejected=q.rejected,
+                        failed=q.failed) for name, q in qos.items()},
+        seconds=time.perf_counter() - t_phase)
+    print(f"serving {json.dumps(rec)}")
+    runs = {f"serving_{name}@{b}": path_launches(engines[name], b)
+            for name in tenants for b in buckets[name]}
+    return rec, runs
+
+
+def dw_many_shards(dev) -> dict:
+    """A neuron-mode split of ``mobilenet_v2_smoke`` over MANY_WORKERS
+    equal workers: each depthwise layer is a table of MANY_WORKERS shards,
+    more than one launch takes, so it runs in ``ceil(n / MAX_SHARDS)``
+    launches.  Each layer's table on the card equals the plain version,
+    and a batch served on the card equals the CPU's, bit for bit, with the
+    counters showing exactly those launches."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Session
+    from repro_torch.core import split_model
+    from repro_torch.kernels.dwconv import ops, ref
+    from repro_torch.models import mobilenet_v2_smoke
+    model = mobilenet_v2_smoke(seed=0)
+    plan = split_model(model, np.ones(MANY_WORKERS), mode="neuron")
+    rng = np.random.default_rng(6)
+    calib = [rng.standard_normal(model.input_shape).astype(np.float32)
+             for _ in range(2)]
+    xs = rng.standard_normal((4, *model.input_shape)).astype(np.float32)
+    cpu = Session(plan, calibration=calib, device="cpu", max_batch=4)
+    gpu = Session(plan, qmodel=cpu.qmodel, device=dev, max_batch=4)
+    gpu.warmup()
+    tables = gpu.engine._constants("int8").shards
+    gen = torch.Generator(device=dev).manual_seed(0)
+    layers = []
+    for i, table in sorted(tables.items()):
+        layer = model.layers[i]
+        shape = (4, *layer.in_shape, layer.stride[0])
+        args, kw = _operands("dwconv3x3", shape, gen, dev, int_bias=True)
+        got = ops.dwconv_shards(args[0], table, *args[1:], **kw)
+        exp = ref.dwconv_shards_ref(args[0], table.rows, *args[1:], **kw)
+        if not torch.equal(got, exp):
+            raise AssertionError(f"dw_many_shards {layer.name}: != plain")
+        layers.append(dict(layer=layer.name, shards=len(table.rows),
+                           launches=len(table.launches)))
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    ys = gpu.submit_many(xs)
+    launched = wrappers["dwconv3x3"].launches
+    if launched != sum(r["launches"] for r in layers):
+        raise AssertionError(f"dw_many_shards: {launched} launches for "
+                             f"{layers}")
+    if not all(r["shards"] == MANY_WORKERS and r["launches"] > 1
+               for r in layers) or len(layers) != 5:
+        raise AssertionError(f"dw_many_shards: tables {layers}")
+    if not np.array_equal(ys, cpu.submit_many(xs)):
+        raise AssertionError("dw_many_shards: card output != CPU output")
+    rec = dict(model="mobilenet_v2_smoke", split="neuron",
+               workers=MANY_WORKERS, layers=layers, launches=launched,
+               tables_bit_exact_vs_plain=True, bit_exact_vs_cpu=True)
+    print(f"dw_many_shards {json.dumps(rec)}")
+    return rec
 
 
 # -- LM phases: qwen3-14b prefill -> greedy decode ----------------------------
@@ -1315,6 +1575,12 @@ def main() -> int:
     paths.append(dict(mode="dist_kernel_inprocess",
                       launches=dists[1]["launches"]))
 
+    # the multi-tenant server over two full-width tenants, and a flat
+    # depthwise layer over more shards than one launch takes
+    serving, serving_runs = serving_phase(model, dev)
+    runs.update(serving_runs)
+    many = dw_many_shards(dev)
+
     recs = kernel_phase(runs, dev)
     # printed: the spatial plan's named layers, the flat plans' b1_dw
     # shards and the off-path yardsticks; every shape is in the JSON file
@@ -1350,7 +1616,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_shapes.json").write_text(json.dumps(
         dict(card=card, batch=BATCH, requests=len(xs), shapes=recs,
-             distributed=dists, elastic=elastic), indent=1))
+             distributed=dists, elastic=elastic, serving=serving,
+             dw_many_shards=many), indent=1))
 
     # the LM serving path: (a) fp32 check, (b) bf16 run at full depth,
     # (c) the flash-decode kernel on the live cache and a yardstick shape
@@ -1381,6 +1648,13 @@ def main() -> int:
                 raise AssertionError(f"{name}: {p['mode']} counts differ")
             print("forward " + json.dumps(dict(kernel=name, mode=p["mode"],
                                                **fwd[p["mode"]])))
+        # one forward of each tenant at each bucket it dispatched (not in
+        # the sums below: the serving run's launches are counted apart)
+        for run in serving_runs:
+            tot = per_run(recs, name, run)
+            if tot["launches"]:
+                print("forward " + json.dumps(dict(kernel=name, mode=run,
+                                                   **tot)))
         rows = [r for r in recs if r["kernel"] == name and r["on_path"]]
         by_bytes = sum(r["bound_ms"] * sum(r["per_run"].get(run, 0)
                                            for run in counted)
@@ -1397,7 +1671,8 @@ def main() -> int:
                       else "operations"),
             ms_from="profiler" if all(r["device_ms"] is not None
                                       for r in rows) else "events",
-            launches_by_path={p["mode"]: p["launches"][name] for p in paths}))
+            launches_by_path={p["mode"]: p["launches"][name] for p in paths},
+            serving_launches=serving["launches"][name]))
     line.append(decode_attn_line(serve, live, attn_recs))
     print(json.dumps({"kernels": line}))
     print(card)

@@ -27,6 +27,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from ..core.executor import (CompiledSplitExecutor, reference_forward,
                              resolve_device)
@@ -195,21 +196,28 @@ class InflightDispatch:
     the previous one's tickets — with this batch's device compute.  This is
     the in-flight bucket slot continuous batching admits into.
 
-    ``wait()`` copies the result to the host (the one synchronization of a
-    dispatch), records the dispatch into the owning session's stats (wall
-    time measured enqueue -> ready, so under pipelining it includes device
-    queueing — the effective per-batch service time), and returns the
-    unpadded outputs.
+    On CUDA the output's copy into a pinned host buffer of its own is
+    enqueued right after the forward, between two events on the stream.
+    ``wait()`` waits for the second event only, so it never waits for work
+    enqueued after this batch (the next in-flight dispatch), and it records
+    the dispatch's device time between the events: from when the stream
+    reaches the batch to when its output is on the host, whenever the
+    caller gets round to ``wait()``.  On the CPU the forward ran inside
+    :meth:`Session.dispatch_async`; ``wait()`` records the wall time since
+    the dispatch began.  Either way it returns the unpadded outputs.
     """
 
-    __slots__ = ("_session", "_n", "_bucket", "_out", "_t0", "_result")
+    __slots__ = ("_session", "_n", "_bucket", "_out", "_t0", "_events",
+                 "_result")
 
-    def __init__(self, session: "Session", n: int, bucket: int, out, t0: float):
+    def __init__(self, session: "Session", n: int, bucket: int, out, t0: float,
+                 events=None):
         self._session = session
         self._n = n
         self._bucket = bucket
         self._out = out
         self._t0 = t0
+        self._events = events
         self._result: np.ndarray | None = None
 
     @property
@@ -222,8 +230,14 @@ class InflightDispatch:
 
     def wait(self) -> np.ndarray:
         if self._result is None:
-            out = self._out.cpu().numpy()   # waits for the device's stream
-            dt = time.perf_counter() - self._t0
+            if self._events is None:
+                out = self._out.cpu().numpy()
+                dt = time.perf_counter() - self._t0
+            else:
+                start, done = self._events
+                done.synchronize()          # this batch's copy, no later work
+                out = self._out.numpy()     # the pinned buffer it owns
+                dt = start.elapsed_time(done) / 1e3
             self._out = None
             self._session._record_dispatch(self._n, self._bucket, dt)
             self._result = out[:self._n]
@@ -333,8 +347,11 @@ class Session:
 
         The continuous-batching seam: the engine never synchronizes inside
         a forward pass, so a scheduler can keep a bucket in flight on the
-        device while it forms the next micro-batch.  Stats are recorded when
-        the returned handle's ``wait()`` reads the result.
+        device while it forms the next micro-batch.  On CUDA the output's
+        copy to a freshly pinned host tensor is enqueued on the same stream
+        right after the forward (the kernels' split-K counters rely on one
+        ordered stream), between two timing events.  Stats are recorded
+        when the returned handle's ``wait()`` reads the result.
         """
         n = len(xs)
         if not 1 <= n <= self.max_batch:
@@ -346,8 +363,18 @@ class Session:
         else:
             batch = xs
         t0 = time.perf_counter()
+        if self.device.type != "cuda":
+            out = self.engine.run_batch_async(batch, mode=self._mode)
+            return InflightDispatch(self, n, b, out, t0)
+        stream = torch.cuda.current_stream(self.device)
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
         out = self.engine.run_batch_async(batch, mode=self._mode)
-        return InflightDispatch(self, n, b, out, t0)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done.record(stream)
+        return InflightDispatch(self, n, b, host, t0, (start, done))
 
     def _dispatch(self, xs: np.ndarray) -> np.ndarray:
         """One padded engine dispatch for n <= max bucket requests."""

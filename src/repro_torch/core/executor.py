@@ -46,6 +46,7 @@ import collections
 import contextlib
 import dataclasses
 import hashlib
+import threading
 
 import numpy as np
 import torch
@@ -78,17 +79,29 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+# The TF32 switches are process-wide: one thread restoring them while
+# another still enqueues a float forward would run the rest of that forward
+# in TF32.  Every float body holds this lock (reentrant: a calibration's
+# reference forward may nest in another float section).
+_FP32_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def _full_fp32():
     """The float path in full float32: TF32 off for cuDNN convolutions and
-    for matmuls (torch enables it for cuDNN by default)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+    for matmuls (torch enables it for cuDNN by default).  Holds the
+    process-wide ``_FP32_LOCK`` around the switch and the body, so float
+    sections of several threads run one at a time.  TF32 is read when an
+    operation is enqueued, so the lock covers enqueueing only: the body
+    does not wait for the device."""
+    with _FP32_LOCK:
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _pad_chw(x, padding):

@@ -22,7 +22,9 @@
 // neuron shard that starts inside a channel computes that channel's rows
 // and keeps its own part.  Without a table one shard spans everything.
 // The table (at most MAX_SHARDS rows) travels in the kernel's parameters,
-// so finding a CTA's shard reads no device memory.
+// so finding a CTA's shard reads no device memory.  A layer of more shards
+// is several launches of consecutive rows; each keeps its rows' dst and the
+// whole layer's out_stride, so it writes its own slice of one output.
 //
 // What bounds it on the H100: 18 operations per output against at least one
 // input byte and one output byte each, far below the ~590 op/byte where the

@@ -15,9 +15,11 @@ kernel (``pad`` rows and columns on each side):
 * :func:`dwconv3x3_bands_unpadded` — band windows whose width is not yet
   padded (the spatial plan's stages);
 * :func:`dwconv3x3_shards` — a whole flat layer over all of its worker
-  shards in one launch (the kernel and neuron plans): a :class:`ShardTable`
-  gives each shard's channel span and flat output range, every CTA belongs
-  to one shard and stores only that shard's positions.
+  shards in one launch (the kernel and neuron plans), or one launch per
+  ``MAX_SHARDS`` shards beyond that (:func:`split_table`): a
+  :class:`ShardTable` gives each shard's channel span and flat output
+  range, every CTA belongs to one shard and stores only that shard's
+  positions.
 
 The first and third count on ``dwconv3x3.launches``, the others on
 ``dwconv3x3_bands.launches``.  A CPU tensor takes the plain version
@@ -189,6 +191,37 @@ class ShardTable:
     def positions(self) -> int:
         return sum(stop - start for _, _, start, stop, _ in self.rows)
 
+    @functools.cached_property
+    def launches(self) -> tuple[tuple["ShardTable", int, int], ...]:
+        """The table as the kernel takes it: :func:`split_table` at
+        ``MAX_SHARDS`` rows a launch."""
+        return tuple(split_table(self, MAX_SHARDS))
+
+
+def _packed(rows) -> ShardTable:
+    rows = tuple(rows)
+    flat = [v for row in rows for v in row]
+    return ShardTable(rows, (ctypes.c_int * len(flat))(*flat))
+
+
+def split_table(table: ShardTable, limit: int
+                ) -> list[tuple[ShardTable, int, int]]:
+    """Cut ``table`` into consecutive tables of at most ``limit`` rows, one
+    launch each: [(sub_table, pos_lo, pos_hi)].  A row keeps its
+    destination, so the launch of a sub-table writes exactly the slice
+    [pos_lo, pos_hi) of the whole table's (NB, positions) output, at the
+    whole table's row stride."""
+    if limit < 1:
+        raise ValueError(f"dwconv launch limit {limit}")
+    if len(table.rows) <= limit:
+        return [(table, 0, table.positions)]
+    out = []
+    for i in range(0, len(table.rows), limit):
+        sub = _packed(table.rows[i:i + limit])
+        _, _, start, stop, dst = sub.rows[-1]
+        out.append((sub, sub.rows[0][4], dst + stop - start))
+    return out
+
 
 def shard_table(shards) -> ShardTable:
     """``shards``: (c_lo, c_hi inclusive, start, stop) of each shard with
@@ -202,8 +235,7 @@ def shard_table(shards) -> ShardTable:
         dst += int(stop) - int(start)
     if not rows:
         raise ValueError("dwconv shard table without shards")
-    flat = [v for row in rows for v in row]
-    return ShardTable(tuple(rows), (ctypes.c_int * len(flat))(*flat))
+    return _packed(rows)
 
 
 @functools.cache
@@ -220,43 +252,46 @@ def _launch(wrapper, x, w, scale, bias, stride, activation, out_scale,
             pad, table: ShardTable | None = None):
     """x: (NB, C, H, W) int8 on CUDA, read with ``pad`` zero rows and
     columns on each side.  Returns (NB, C, oh, ow), or (NB, positions) with
-    a shard table; counts the launch on ``wrapper``."""
+    a shard table; counts each launch on ``wrapper``.  A table of more than
+    ``MAX_SHARDS`` shards takes one launch per ``MAX_SHARDS``
+    (:func:`split_table`), each writing its slice of the one output."""
     nb, c, h, wd = x.shape
     oh, ow = out_size(h, wd, stride, pad)
     out_i8 = out_scale is not None
     dtype = torch.int8 if out_i8 else torch.float32
     if table is None:
         out = torch.empty((nb, c, oh, ow), dtype=dtype, device=x.device)
-        spans, per_window = (c,), c * oh * ow
+        per_window = c * oh * ow
+        parts = ((None, (c,)),)
     else:
-        if len(table.rows) > MAX_SHARDS:
-            raise ValueError(f"dwconv launch over {len(table.rows)} shards "
-                             f"(the kernel takes at most {MAX_SHARDS})")
         per_window = table.positions
         out = torch.empty((nb, per_window), dtype=dtype, device=x.device)
-        spans = table.spans
+        parts = tuple((sub, sub.spans) for sub, _, _ in table.launches)
     if out.numel() == 0:
         return out
-    sched = _schedule(nb, spans, h, wd, stride, tuple(pad),
-                      backend.sm_count(x.device))
-    if sched.tiles > MAX_GRID or nb > MAX_WINDOWS:
-        raise ValueError(f"dwconv grid {sched.tiles} x {nb} too large")
+    n_sm = backend.sm_count(x.device)
+    scheds = [_schedule(nb, spans, h, wd, stride, tuple(pad), n_sm)
+              for _, spans in parts]
+    tiles = max(sched.tiles for sched in scheds)
+    if tiles > MAX_GRID or nb > MAX_WINDOWS:
+        raise ValueError(f"dwconv grid {tiles} x {nb} too large")
     x, w = x.contiguous(), w.contiguous()
     scale, bias = scale.contiguous(), bias.contiguous()
     inv = f32(1.0 / float(out_scale)) if out_i8 else 1.0
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _entry()(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), None if table is None else table.packed,
-        0 if table is None else len(table.rows), nb, c, h, wd, pad[0],
-        pad[1], stride, sched.c_tile, sched.rows_tile, sched.slab,
-        sched.tiles, per_window,
-        int(not bias.dtype.is_floating_point), int(out_i8),
-        _ACTIVATIONS[activation], inv, stream)
-    wrapper.launches += 1
-    backend.check("dwconv", status,
-                  f"dwconv3x3 NB={nb} C={c} H={h} W={wd} s={stride} "
-                  f"pad={pad} shards={len(spans)}")
+    for (sub, spans), sched in zip(parts, scheds):
+        status = _entry()(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), None if sub is None else sub.packed,
+            0 if sub is None else len(sub.rows), nb, c, h, wd, pad[0],
+            pad[1], stride, sched.c_tile, sched.rows_tile, sched.slab,
+            sched.tiles, per_window,
+            int(not bias.dtype.is_floating_point), int(out_i8),
+            _ACTIVATIONS[activation], inv, stream)
+        wrapper.launches += 1
+        backend.check("dwconv", status,
+                      f"dwconv3x3 NB={nb} C={c} H={h} W={wd} s={stride} "
+                      f"pad={pad} shards={len(spans)}")
     return out
 
 
@@ -327,7 +362,8 @@ def dwconv3x3_shards(x, table: ShardTable, w, scale, bias, *,
     channel span and keeps its flat output range; the result is
     (B, positions), the shards' ranges side by side in table order — the
     reference's per-shard ``dwconv`` + slice + concatenate.  Counts one
-    launch on ``dwconv3x3.launches``."""
+    launch on ``dwconv3x3.launches`` for each ``MAX_SHARDS`` shards (a
+    table of more takes ``ceil(shards / MAX_SHARDS)`` launches)."""
     _check_args(x, w, scale, bias, stride, activation, (4,), (1, 1))
     if max(c_hi for _, c_hi, *_ in table.rows) > x.shape[1]:
         raise ValueError(f"shard table beyond {x.shape[1]} channels")

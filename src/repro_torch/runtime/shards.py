@@ -42,7 +42,6 @@ import collections
 import dataclasses
 import hashlib
 import json
-import threading
 import time
 
 import numpy as np
@@ -266,12 +265,6 @@ def build_worker_setup(split: SplitPlan, qmodel: QuantizedModel | None,
 # ---------------------------------------------------------------------------
 # Worker-side segment compilation
 # ---------------------------------------------------------------------------
-
-# The float path turns TF32 off through process-wide flags; in-process
-# workers compute on threads of their own, so one float segment at a time
-# holds them.
-_FP32_LOCK = threading.Lock()
-
 
 def _upload(a, device, dtype=None):
     """A C-contiguous copy of numpy ``a`` on ``device`` (frames hand out
@@ -505,8 +498,10 @@ def build_segment_fns(meta: dict, arrays: dict[str, np.ndarray],
 
 
 def _fp32(body):
+    # in-process workers compute on threads of their own; _full_fp32 holds
+    # the process-wide lock that keeps their float segments apart
     def fn(x):
-        with _FP32_LOCK, _full_fp32():
+        with _full_fp32():
             return body(x)
     return fn
 

@@ -278,12 +278,31 @@ def test_dwconv_same_vs_plain(cuda, b, c, h, w, stride):
 
 
 def test_dwconv_shards_beyond_the_kernel_raise(cuda):
-    n = 65
-    table = shard_table([(c, c, c * 4, c * 4 + 4) for c in range(n)])
-    x = torch.ones((1, n, 2, 2), dtype=torch.int8, device=cuda)
-    w, s, b = _dw_inputs(np.random.default_rng(0), n, cuda)
-    with pytest.raises(ValueError, match="at most"):
-        dwconv_shards(x, table, w, s, b)
+    """A flat layer of more shards than one launch's parameters hold runs in
+    ``ceil(n / MAX_SHARDS)`` launches, each writing its slice of the one
+    output: bit-exact with the plain loop, kernel-mode spans and neuron-mode
+    ranges that split channels, uneven either way."""
+    from repro_torch.kernels.dwconv.dwconv import MAX_SHARDS
+    rng = np.random.default_rng(0)
+    for n in (65, 130):
+        for cut in ("kernel", "neuron"):
+            c, h, w = (n + 7, 6, 6) if cut == "kernel" else (n // 2 + 3, 7, 7)
+            hw = h * w
+            x = torch.from_numpy(rng.integers(-127, 128, (3, c, h, w))
+                                 .astype(np.int8)).to(cuda)
+            wt, s, bq, bf = _dw_both(rng, c, cuda)
+            table = shard_table(_shards(c, hw, n, cut == "kernel", rng))
+            assert len(table.rows) == n
+            for bias, act, osc in ((bq, "relu6", 0.05), (bf, "relu", None)):
+                before = dwconv3x3.launches
+                got = dwconv_shards(x, table, wt, s, bias, activation=act,
+                                    out_scale=osc)
+                assert dwconv3x3.launches == before + -(-n // MAX_SHARDS)
+                exp = dwconv_shards_ref(x, table.rows, wt, s, bias,
+                                        activation=act, out_scale=osc)
+                torch.cuda.synchronize()
+                assert got.shape == (3, c * hw)
+                _assert_dw(got, exp, osc is not None)
 
 
 def test_dwconv_smem_layout_matches_schedule(cuda):
@@ -319,6 +338,159 @@ def test_forward_one_depthwise_launch_per_layer(cuda, mode):
     np.testing.assert_array_equal(
         got, T.CompiledSplitExecutor(plan, cpu.qmodel, device="cpu")
         .run_batch(xs, mode="int8"))
+
+
+def test_session_over_72_workers_on_card_equals_cpu(cuda):
+    """A neuron-mode split of the smoke model over 72 equal workers: each
+    of its 5 depthwise layers has 72 non-empty shards (a kernel-mode split
+    would give at most 48, the widest depthwise layer), so each takes two
+    launches a forward, and the output is bit-exact with the CPU's."""
+    from repro_torch.kernels.dwconv.dwconv import MAX_SHARDS
+    model = mobilenet_v2_smoke()
+    plan = T.split_model(model, np.ones(72), mode="neuron")
+    dw = [i for i, layer in enumerate(model.layers) if layer.kind == "dwconv"]
+    assert len(dw) == 5
+    for i in dw:
+        assert sum(sh.n_positions > 0 for sh in plan.splits[i].shards) == 72
+    rng = np.random.default_rng(0)
+    calib = [rng.standard_normal(model.input_shape).astype(np.float32)
+             for _ in range(2)]
+    xs = rng.standard_normal((4, *model.input_shape)).astype(np.float32)
+    cpu = Session(plan, calibration=calib, device="cpu", max_batch=4)
+    gpu = Session(plan, qmodel=cpu.qmodel, device=cuda, max_batch=4)
+    gpu.warmup()
+    before = dwconv3x3.launches
+    got = gpu.submit_many(xs)
+    assert dwconv3x3.launches - before == len(dw) * -(-72 // MAX_SHARDS)
+    np.testing.assert_array_equal(got, cpu.submit_many(xs))
+
+
+def test_float_threads_and_calibration_equal_single_thread(cuda):
+    """Two threads each serve 10 float requests and calibrate an int8
+    session at the same time.  The TF32 switch is process-wide, so this is
+    right only while every float section holds ``_full_fp32``'s lock:
+    outputs equal the single-thread runs within rtol 1e-6 (TF32 would be
+    ~1e-3 off) and the calibrated scales are identical."""
+    import threading
+    model = mobilenet_v2_smoke()
+    plan = T.split_model(model, RATINGS, mode="kernel")
+    rng = np.random.default_rng(3)
+    xs = rng.standard_normal((10, *model.input_shape)).astype(np.float32)
+    single = Session(plan, precision="float", device=cuda)
+    want = [single.run(x) for x in xs]
+    want_q = Session(plan, precision="int8", seed=0, device=cuda).qmodel
+    barrier = threading.Barrier(2)
+    results, errors = {}, []
+
+    def client(k):
+        try:
+            sess = Session(plan, precision="float", device=cuda)
+            barrier.wait(30)
+            outs = []
+            if k == 1:
+                qm = Session(plan, precision="int8", seed=0,
+                             device=cuda).qmodel
+            for x in xs:
+                outs.append(sess.run(x))
+            if k == 0:
+                qm = Session(plan, precision="int8", seed=0,
+                             device=cuda).qmodel
+            results[k] = (outs, qm)
+        except Exception as e:  # noqa: BLE001 — re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not errors and not any(t.is_alive() for t in threads)
+    for outs, qm in results.values():
+        for got, exp in zip(outs, want):
+            np.testing.assert_allclose(got, exp, rtol=1e-6,
+                                       atol=1e-6 * np.abs(exp).max())
+        assert qm.input_scale == want_q.input_scale
+        for a, b in zip(qm.layers, want_q.layers):
+            assert (a.in_scale, a.out_scale) == (b.in_scale, b.out_scale)
+            for x, y in ((a.w_scale, b.w_scale), (a.b_q, b.b_q)):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_dispatch_wait_does_not_wait_for_the_next(cuda):
+    """``InflightDispatch.wait`` waits for its own batch only: with ~200 ms
+    of work enqueued on the stream between two dispatches, the first
+    batch's wait returns well before it, and both are bit-exact."""
+    model = mobilenet_v2_smoke()
+    plan = T.split_model(model, RATINGS, mode="spatial")
+    rng = np.random.default_rng(0)
+    calib = [rng.standard_normal(model.input_shape).astype(np.float32)
+             for _ in range(2)]
+    xs = rng.standard_normal((8, *model.input_shape)).astype(np.float32)
+    cpu = Session(plan, calibration=calib, device="cpu", max_batch=4)
+    gpu = Session(plan, qmodel=cpu.qmodel, device=cuda, max_batch=4)
+    gpu.warmup()
+    # cycles of torch.cuda._sleep that take ~200 ms on this card
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    end.synchronize()
+    cycles = int(10 ** 7 * 200.0 / start.elapsed_time(end))
+    import time
+    first = gpu.dispatch_async(xs[:4])
+    torch.cuda._sleep(cycles)
+    second = gpu.dispatch_async(xs[4:])
+    t0 = time.perf_counter()
+    got_first = first.wait()
+    waited = time.perf_counter() - t0
+    got_second = second.wait()
+    assert waited < 0.05, waited
+    assert gpu.dispatch_latency_s(bucket=4) < 0.1
+    np.testing.assert_array_equal(got_first, cpu.submit_many(xs[:4]))
+    np.testing.assert_array_equal(got_second, cpu.submit_many(xs[4:]))
+
+
+def test_server_on_card(cuda):
+    """Two int8 tenants (spatial and neuron splits) and a float one on one
+    ``Server`` on the card, requests queued before the scheduler starts so
+    they ride batches of several sizes: int8 byte-equal to ``Session.run``
+    on the card, float within 1e-5 of it (cuDNN may pick another algorithm
+    for another bucket)."""
+    from repro_torch.serve import Server
+    model = mobilenet_v2_smoke()
+    rng = np.random.default_rng(2)
+    xs = rng.standard_normal((11, *model.input_shape)).astype(np.float32)
+    plans = {"s": T.split_model(model, RATINGS, mode="spatial"),
+             "n": T.split_model(model, RATINGS, mode="neuron"),
+             "f": T.split_model(model, RATINGS, mode="kernel")}
+    oracles = {name: Session(plan, precision="float" if name == "f" else
+                             "int8", seed=0, device=cuda, max_batch=4)
+               for name, plan in plans.items()}
+    srv = Server()
+    for name, plan in plans.items():
+        srv.add_tenant(name, plan, precision=oracles[name].precision,
+                       qmodel=oracles[name].qmodel, max_batch=4,
+                       device=cuda)
+    srv._running = True             # queue before the scheduler starts
+    tickets = {name: [srv.submit(name, x) for x in xs] for name in plans}
+    srv._running = False
+    before = qgemm.launches, dwconv3x3.launches, dwconv3x3_bands.launches
+    with srv:
+        outs = {name: [t.result(timeout=120.0) for t in ts]
+                for name, ts in tickets.items()}
+    assert all(now > was for now, was in zip(
+        (qgemm.launches, dwconv3x3.launches, dwconv3x3_bands.launches),
+        before))
+    for name, ys in outs.items():
+        assert srv.session(name).stats().batches < len(xs)
+        for x, y in zip(xs, ys):
+            want = oracles[name].run(x)
+            if name == "f":
+                np.testing.assert_allclose(y, want, rtol=1e-5,
+                                           atol=1e-5 * np.abs(want).max())
+            else:
+                assert y.dtype == want.dtype
+                assert y.tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("mode", ["spatial", "kernel", "neuron", "mixed"])

@@ -9,6 +9,8 @@ across stride-2 and spatial->kernel seams, and ``run_batch`` must equal
 stacked ``run`` calls.  Float output is allclose: the port's float
 convolutions sum in another order than XLA's (tolerance below).
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -318,3 +320,67 @@ class TestEngine:
             eng.run(xs[0], mode="fp16")
         with pytest.raises(ValueError, match="QuantizedModel"):
             eng.run(xs[0], mode="int8")
+
+
+class TestFp32Lock:
+    """The float path's TF32 switch is process-wide, so ``_full_fp32``
+    holds one process-wide lock around the switch and the body."""
+
+    def test_second_thread_waits_for_the_first(self):
+        a_inside, a_release, b_ready = (threading.Event() for _ in range(3))
+        order, seen = [], {}
+
+        def first():
+            with port_executor._full_fp32():
+                seen["a_flag"] = torch.backends.cudnn.allow_tf32
+                a_inside.set()
+                assert a_release.wait(30)
+                order.append("a leaves")
+
+        def second():
+            # while the first is inside, the lock is not to be had
+            seen["b_free"] = port_executor._FP32_LOCK.acquire(blocking=False)
+            if seen["b_free"]:
+                port_executor._FP32_LOCK.release()
+            b_ready.set()
+            with port_executor._full_fp32():
+                order.append("b enters")
+                seen["b_flag"] = torch.backends.cudnn.allow_tf32
+
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        ta = threading.Thread(target=first)
+        ta.start()
+        assert a_inside.wait(30)
+        tb = threading.Thread(target=second)
+        tb.start()
+        assert b_ready.wait(30)
+        a_release.set()
+        ta.join(30)
+        tb.join(30)
+        assert not ta.is_alive() and not tb.is_alive()
+        assert seen == dict(a_flag=False, b_free=False, b_flag=False)
+        assert order == ["a leaves", "b enters"]
+        assert (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32) == prev
+
+    def test_reentrant_and_restoring(self):
+        """A calibration's reference forward nests inside a float section
+        of the same thread: no deadlock, flags back as they were."""
+        prev = torch.backends.cudnn.allow_tf32
+        with port_executor._full_fp32():
+            with port_executor._full_fp32():
+                assert not torch.backends.cudnn.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+        assert torch.backends.cudnn.allow_tf32 == prev
+        assert port_executor._FP32_LOCK.acquire(blocking=False)
+        port_executor._FP32_LOCK.release()
+
+    def test_workers_hold_no_lock_of_their_own(self):
+        """The workers' float segments take the same lock through
+        ``_full_fp32``; a second lock could order against it and
+        deadlock."""
+        from repro_torch.runtime import shards
+        lock_types = (type(threading.Lock()), type(threading.RLock()))
+        assert not [name for name, v in vars(shards).items()
+                    if isinstance(v, lock_types)]

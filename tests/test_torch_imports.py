@@ -28,6 +28,9 @@ PLANNER_RUNTIME_SLICE = (
     "runtime/protocol.py", "runtime/shards.py", "runtime/worker.py",
     "runtime/coordinator.py", "runtime/validate.py", "runtime/elastic.py",
     "runtime/replan.py", "serve/admission.py")
+# the serving slice's modules, likewise
+SERVING_SLICE = ("serve/__init__.py", "serve/admission.py", "serve/qos.py",
+                 "serve/scheduler.py", "serve/server.py", "serve/loadgen.py")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -80,7 +83,8 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
     assert '"ok"' not in proc.stdout
 
 
-@pytest.mark.parametrize("rel", LM_SLICE + PLANNER_RUNTIME_SLICE)
+@pytest.mark.parametrize("rel", list(dict.fromkeys(
+    LM_SLICE + PLANNER_RUNTIME_SLICE + SERVING_SLICE)))
 def test_lm_slice_module_present_and_clean(rel):
     path = PORT / rel
     assert path in FILES

@@ -33,6 +33,7 @@ from repro_torch.kernels.dwconv.ops import (dwconv, dwconv_bands,
                                             dwconv_bands_unpadded,
                                             dwconv_shards, dwconv_window,
                                             shard_table)
+from repro_torch.kernels.dwconv.ref import dwconv_shards_ref
 from repro_torch.kernels.qgemm.ops import qconv2d, qgemm_padded
 from repro_torch.kernels.qgemm.qgemm import qgemm
 from repro_torch.kernels.qgemm.ref import qgemm_ref
@@ -275,6 +276,75 @@ class TestDWConvShards:
                                  dw_mod.MAX_SHARDS + 1))
         assert dwconv_shards(x, many, w, s, b).shape == (1, 4 * len(
             many.rows))
+
+
+def _uneven_table(rng, n: int, kernel_mode: bool):
+    """``n`` shards of uneven size over a layer: kernel mode cuts whole
+    channels (spans of 1-4), neuron mode cuts flat positions anywhere (so
+    shards split channels).  Returns (table, C, H, W)."""
+    h = w = 5
+    hw = h * w
+    if kernel_mode:
+        spans = rng.integers(1, 5, n)
+        c = int(spans.sum())
+        lo = np.concatenate([[0], np.cumsum(spans)[:-1]])
+        rows = [(int(a), int(a + s - 1), int(a) * hw, int(a + s) * hw)
+                for a, s in zip(lo, spans)]
+    else:
+        c = 3 * n // 4 + 1
+        cuts = np.sort(rng.choice(np.arange(1, c * hw), n - 1, replace=False))
+        bounds = np.concatenate([[0], cuts, [c * hw]])
+        rows = [(int(a) // hw, (int(b) - 1) // hw, int(a), int(b))
+                for a, b in zip(bounds[:-1], bounds[1:])]
+    return shard_table(rows), c, h, w
+
+
+class TestSplitTable:
+    """A table of more shards than one launch takes is cut into launches of
+    at most ``MAX_SHARDS`` rows, each writing its own slice of the one
+    output: its rows keep their destinations."""
+
+    @pytest.mark.parametrize("kernel_mode", [True, False])
+    @pytest.mark.parametrize("n", [65, 128, 130])
+    def test_chunks_equal_the_whole_table(self, n, kernel_mode):
+        rng = np.random.default_rng(n + kernel_mode)
+        table, c, h, w = _uneven_table(rng, n, kernel_mode)
+        assert len(set(table.spans)) > 1
+        x = torch.from_numpy(rng.integers(-127, 128, (2, c, h, w))
+                             .astype(np.int8))
+        wt, sc, b = _t(*_dw_inputs(rng, c))
+        kw = dict(stride=1, activation="relu6", out_scale=0.05)
+        whole = dwconv_shards_ref(x, table.rows, wt, sc, b, **kw)
+        chunks = dw_mod.split_table(table, dw_mod.MAX_SHARDS)
+        assert len(chunks) == -(-n // dw_mod.MAX_SHARDS) == len(table.launches)
+        assert [len(sub.rows) for sub, _, _ in chunks] == [
+            min(dw_mod.MAX_SHARDS, n - i)
+            for i in range(0, n, dw_mod.MAX_SHARDS)]
+        out = torch.zeros_like(whole)
+        covered = first = 0
+        for sub, lo, hi in chunks:
+            assert lo == covered and sub.positions == hi - lo
+            assert sub.rows == table.rows[first:first + len(sub.rows)]
+            assert list(sub.packed) == [v for row in sub.rows for v in row]
+            first += len(sub.rows)
+            out[:, lo:hi] = dwconv_shards_ref(x, sub.rows, wt, sc, b, **kw)
+            # as the kernel stores: each row at its own destination
+            for row in sub.rows:
+                part = dwconv_shards_ref(x, [row], wt, sc, b, **kw)
+                assert torch.equal(whole[:, row[4]:row[4] + part.shape[1]],
+                                   part)
+            covered = hi
+        assert covered == table.positions
+        assert torch.equal(out, whole)
+
+    def test_small_tables_are_one_launch(self):
+        table = shard_table([(0, 2, 0, 40), (2, 2, 40, 45), (2, 4, 45, 80)])
+        assert dw_mod.split_table(table, 64) == [(table, 0, 80)]
+        assert table.launches == ((table, 0, 80),)
+        assert [(lo, hi) for _, lo, hi in dw_mod.split_table(table, 2)] == [
+            (0, 45), (45, 80)]
+        with pytest.raises(ValueError):
+            dw_mod.split_table(table, 0)
 
 
 class TestWrappers:
