@@ -91,14 +91,39 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
        logits, and times kernel (its split and merge kernels), plain
        version and ``F.scaled_dot_product_attention`` there, beside the
        bound and its schedule;
-   the LM records go to ``chiprun_out/chip_smoke_lm.json``;
-9. prints a JSON line of every kernel: its launches in the counted runs
-   (the three engine plans and the in-process distributed run), its
-   largest error against its plain version, and the sums over those
-   launches of its time, its bound, and the plain and library times at
-   each launch's shape; a CNN kernel also carries its launches in the
-   serving run (``serving_launches``);
-10. prints ``{"ok": true, "device": {...}}`` as the last line.
+9. the other LM families (``lm_family`` lines), one model at a time, each
+   freed before the next:
+   (a) in float32 at full width with TF32 off, at a depth that holds every
+       block kind of the family (``FAMILY_CHECKS``: 2 layers of each MoE
+       config at capacity factor 8, the hybrid's rec, rec, attn with a
+       2052-token prompt over its 2048-slot ring, 7 mLSTM + 1 sLSTM,
+       whisper's full 6 + 6 over 1500 frames, 2 vlm layers over 576
+       patches): prefill and 4 greedy decode steps through the serve steps
+       must give the full forward's logits at each position (rtol 2e-3,
+       atol 2e-4) and its greedy tokens;
+   (b) in bf16 at full width, 8 prompts (``FAMILY_SERVES``):
+       ``deepseek-moe-16b`` at full depth with 2048-token prompts and 32
+       decode steps, the others 8 steps: ``dbrx-132b`` cut to 4 of its 40
+       layers (its bf16 weights do not fit in 80 GB), ``recurrentgemma-9b``
+       and ``xlstm-1.3b`` at 2048 tokens, ``whisper-base`` with 1500
+       frames and 448 decoder tokens, ``llava-next-mistral-7b`` with 576
+       patches and 1472 tokens; as in 8 (b), no decode step may make a
+       synchronising call, and ``decode_attn`` must launch once for each
+       attention against a cache in each step (two per whisper decoder
+       layer, none for xlstm) and no other kernel at all; prints prefill
+       ms, decode ms per step beside its byte bound, the card's busy and
+       idle share over the last 2 steps and the peak memory;
+   (c) holds flash-decode against its plain version on each family's
+       live layer-0 caches (whisper's self and cross), timed as in 8 (c);
+   the family records join ``chiprun_out/chip_smoke_lm.json``;
+10. prints a JSON line of every kernel: its launches in the counted runs
+   (the three engine plans and the in-process distributed run; for
+   ``decode_attn`` the dense LM run and each family's), its largest error
+   against its plain version, and the sums over those launches of its
+   time, its bound, and the plain and library times at each launch's
+   shape; a CNN kernel also carries its launches in the serving run
+   (``serving_launches``);
+11. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero, as does a machine without CUDA or a
 directory without the repository's ``src``.  Weights are random, made from
@@ -1492,11 +1517,12 @@ def lm_kernel_phase(live, dev) -> list[dict]:
     return recs
 
 
-def decode_attn_line(serve, live, recs) -> dict:
-    """The ``kernels`` entry of decode_attn: launches from the served run's
-    counter; each time the per-launch time at the live shape times the
-    launches; the bound summed over the run's launches at their own
-    lengths."""
+def decode_attn_line(serve, live, recs, families) -> dict:
+    """The ``kernels`` entry of decode_attn: launches from the served runs'
+    counters (the dense run's and each family's, ``families``, from
+    ``family_attn_totals``); each time the per-launch time at the run's
+    live shape times its launches; the bound summed over the runs'
+    launches at their own lengths."""
     path = recs[0]
     n = serve["launches"]["decode_attn"]
     cfg = live["cfg"]
@@ -1505,17 +1531,380 @@ def decode_attn_line(serve, live, recs) -> dict:
                               cfg.q_groups, cfg.resolved_head_dim, item,
                               item)[0]
                 for ln in live["lengths"]) * cfg.n_layers
+    dense = dict(launches=n, ms=n * (path["device_ms"] or path["event_ms"]),
+                 plain_ms=n * path["plain_ms"], bound_ms=bound,
+                 library_ms=n * path["library_ms"],
+                 in_path_ms=n * serve["decode_attn_in_path_ms"],
+                 max_abs_err=max(r["max_abs_err"] for r in recs))
+    runs = {"lm_decode": dense, **families}
     ms_from = "profiler" if path["device_ms"] is not None else "events"
     return dict(
         name="decode_attn", route="cuda",
         source="src/repro_torch/csrc/decode_attn.cu",
         replaces="src/repro/kernels/decode_attn/decode_attn.py:63",
-        launches=n, max_abs_err=max(r["max_abs_err"] for r in recs),
-        ms=n * (path["device_ms"] or path["event_ms"]),
-        plain_ms=n * path["plain_ms"], bound_ms=bound, bound_by="bytes",
-        library_ms=n * path["library_ms"], ms_from=ms_from,
-        in_path_ms=n * serve["decode_attn_in_path_ms"],
-        launches_by_path={"lm_decode": n})
+        **{key: sum(r[key] for r in runs.values())
+           for key in ("launches", "ms", "plain_ms", "bound_ms")},
+        bound_by="bytes",
+        library_ms=sum(r["library_ms"] for r in runs.values()),
+        max_abs_err=max(r["max_abs_err"] for r in runs.values()),
+        ms_from=ms_from,
+        in_path_ms=sum(r["in_path_ms"] for r in runs.values()),
+        launches_by_path={name: r["launches"] for name, r in runs.items()},
+        by_path=runs)
+
+
+# -- LM families phase: moe, hybrid, ssm, audio, vlm -------------------------
+
+# (a) float32 checks at full width, TF32 off: (arch, layers (None: the
+# config's), batch, decoder prompt).  The depth holds every block kind of
+# the family; MoE at batch 8 with capacity factor 8 (the reference's test),
+# where decode's 8 tokens leave each expert room for 6 (deepseek) or 16
+# (dbrx); the hybrid's prompt of 2052 > its 2048 window fills the ring in
+# rotated order, and each decode step overwrites its oldest slot.
+FAMILY_CHECKS = (("deepseek-moe-16b", 2, 8, 16), ("dbrx-132b", 2, 8, 16),
+                 ("recurrentgemma-9b", 3, 2, 2052), ("xlstm-1.3b", 8, 2, 64),
+                 ("whisper-base", None, 2, 16),
+                 ("llava-next-mistral-7b", 2, 2, 16))
+FAMILY_CHECK_STEPS = 4
+# (b) bf16 serves of LM_BATCH prompts at full width: (arch, layers (None:
+# the config's), decoder prompt, decode steps).  dbrx-132b is cut to 4 of
+# its 40 layers: its 263 GB of bf16 weights do not fit in 80 GB.  Whisper's
+# decoder prompt is its text context (448); llava's 1472 tokens follow its
+# 576 patches, 2048 positions in all.
+FAMILY_SERVES = (("deepseek-moe-16b", None, LM_PROMPT, LM_TOKENS),
+                 ("dbrx-132b", 4, LM_PROMPT, 8),
+                 ("recurrentgemma-9b", None, LM_PROMPT, 8),
+                 ("xlstm-1.3b", None, LM_PROMPT, 8),
+                 ("whisper-base", None, 448, 8),
+                 ("llava-next-mistral-7b", None, LM_PROMPT - 576, 8))
+# decode attentions against a cache, a block: self (attn, moe) and, for
+# whisper's decoder, self and cross
+ATTN_CALLS = {"attn": {"self": 1}, "moe": {"self": 1},
+              "xattn": {"self": 1, "cross": 1}}
+
+
+def _family_inputs(cfg, b, s, rng, dev):
+    """Prompts and the stub frontend's frame or patch embeddings (from
+    ``rng``), as the serve steps take them."""
+    import numpy as np
+    import torch
+    from repro_torch.nn.layers import torch_dtype
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, s))).to(dev)}
+    stub = {"audio": ("frames", cfg.n_audio_frames),
+            "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
+    if stub:
+        out[stub[0]] = torch.from_numpy(rng.standard_normal(
+            (b, stub[1], cfg.d_model)).astype(np.float32)).to(
+            dev, torch_dtype(cfg.dtype))
+    return out
+
+
+def _attn_calls(cfg) -> dict:
+    """Decode attentions a step, by cache kind (self, cross)."""
+    from repro_torch.models import lm
+    out = {"self": 0, "cross": 0}
+    for pattern, ng in lm.pattern_stacks(cfg):
+        for kind in pattern:
+            for name, n in ATTN_CALLS.get(kind, {}).items():
+                out[name] += n * ng
+    return out
+
+
+def family_check_fp32(arch, n_layers, b, s, dev) -> dict:
+    """Phase (a) of one family: prefill and FAMILY_CHECK_STEPS greedy
+    decode steps through the serve steps, in float32 at full width with
+    TF32 off, must give the full (train mode) forward's logits at each
+    step's position within LM_RTOL/LM_ATOL, and its greedy tokens.  The
+    full forward runs once, over the prompt and the generated tokens: it is
+    causal, so position p sees what the step at p saw."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import _full_fp32
+    from repro_torch.models import lm
+    from repro_torch.train.serve import make_decode_step, make_prefill_step
+    cfg = get_config(arch)
+    kw = dict(dtype="float32")
+    if n_layers:
+        kw["n_layers"] = n_layers
+    if cfg.n_experts:
+        kw["capacity_factor"] = 8.0
+    cfg = dataclasses.replace(cfg, **kw)
+    n = FAMILY_CHECK_STEPS
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    max_seq = prefix + s + n + 1
+    with _full_fp32():
+        params = lm.init_model(cfg, 0, device=dev)
+        inp = _family_inputs(cfg, b, s, np.random.default_rng(1), dev)
+        cache = lm.init_cache(cfg, b, max_seq, device=dev)
+        logits, cache = make_prefill_step(cfg, b, max_seq, device=dev)(
+            params, cache, inp)
+        decode = make_decode_step(cfg, b, max_seq, device=dev)
+        got, toks = [logits], []
+        for _ in range(n):
+            toks.append(torch.argmax(got[-1], -1)[:, None])
+            got.append(decode(params, cache, toks[-1])[0])
+        full = lm.forward(params, dict(inp, tokens=torch.cat(
+            [inp["tokens"]] + toks, dim=1)), cfg, mode="train")
+        errs = []
+        for i, lg in enumerate(got):
+            ref = full[:, prefix + s - 1 + i]
+            errs.append(float((lg - ref).abs().max()))
+            if not torch.allclose(lg, ref, rtol=LM_RTOL, atol=LM_ATOL):
+                raise AssertionError(f"{arch} fp32 step {i}: cache path "
+                                     f"differs from the full forward by "
+                                     f"{errs[-1]}")
+            if not torch.equal(torch.argmax(lg, -1), torch.argmax(ref, -1)):
+                raise AssertionError(f"{arch} fp32 step {i}: greedy tokens "
+                                     f"differ")
+    del params, cache, full
+    torch.cuda.empty_cache()
+    rec = dict(phase="a", arch=arch, n_layers=cfg.n_layers,
+               kinds=[list(p) for p, _ in lm.pattern_stacks(cfg)],
+               dtype="float32", batch=b, prompt=s, prefix=prefix,
+               decode_steps=n, max_seq=max_seq,
+               capacity_factor=cfg.capacity_factor if cfg.n_experts else None,
+               max_abs_err=max(errs), rtol=LM_RTOL, atol=LM_ATOL,
+               greedy_tokens=[t[:, 0].tolist() for t in toks])
+    print(f"lm_family {json.dumps(rec)}")
+    return rec
+
+
+def _family_step_bytes(cfg, params, cache, b: int, pos: int) -> int:
+    """Bytes one decode step at position ``pos`` must move: every weight it
+    reads once (not the embedding table but the batch's rows, not the
+    audio encoder or the vlm patch projection, which decode does not run),
+    each self-attention cache's K and V up to its valid length and one slot
+    written, each cross-attention cache read whole, and each recurrent
+    state read and written once."""
+    from repro_torch.models import lm
+    from repro_torch.nn.layers import leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+    skip = nbytes(params["embed"]) + nbytes(params.get("encoder", {})) + \
+        nbytes(params.get("mm_proj", {}))
+    total = nbytes(params) - skip + b * params["embed"][0].numel() * \
+        params["embed"].element_size()
+    for (pattern, ng), stack in zip(lm.pattern_stacks(cfg), cache["stacks"]):
+        for key, blk in stack.items():
+            kind = key.split("_", 1)[1]
+            if kind not in ATTN_CALLS:
+                total += 2 * nbytes(blk)
+                continue
+            attn = blk["self"] if kind == "xattn" else blk
+            k = attn["k"]                          # (ng, B, w, K, hd)
+            slot = 2 * k[0, 0, 0].numel() * k.element_size()
+            total += ng * b * (min(pos + 1, k.shape[2]) + 1) * slot
+            if kind == "xattn":
+                total += nbytes(blk["cross"])
+    return total
+
+
+def family_serve(arch, n_layers, s, n, dev) -> tuple[dict, dict]:
+    """Phase (b) of one family: bf16 at full width (random weights, seed
+    0), LM_BATCH prompts of ``s`` decoder tokens: a warm-up prefill, the
+    timed prefill, then ``n`` greedy decode steps through the serve steps,
+    the last LM_PROFILED_STEPS of them under the profiler and none making a
+    synchronising call.  ``decode_attn`` must launch once for each
+    attention against a cache in each step, and no other kernel at all.
+    Returns the record and layer 0's live caches for phase (c)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.nn.layers import leaves
+    from repro_torch.train.serve import make_decode_step, make_prefill_step
+    cfg = get_config(arch)
+    full_layers = cfg.n_layers
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    b = LM_BATCH
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    max_seq = prefix + s + n + 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    params_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    inp = _family_inputs(cfg, b, s, np.random.default_rng(0), dev)
+    cache = lm.init_cache(cfg, b, max_seq, device=dev)
+    prefill = make_prefill_step(cfg, b, max_seq, device=dev)
+    decode = make_decode_step(cfg, b, max_seq, device=dev)
+    prefill(params, cache, inp)            # warm-up; refilled below
+    torch.cuda.synchronize()
+
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cache, inp)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    gen, positions = [torch.argmax(logits, -1)[:, None]], []
+
+    def step():
+        positions.append(cache["pos"])
+        out, _ = decode(params, cache, gen[-1])
+        gen.append(torch.argmax(out, -1)[:, None])
+        return out
+
+    timed = n - LM_PROFILED_STEPS
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(timed):
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    events, wall_us, logits = trace_calls(step, LM_PROFILED_STEPS)
+    calls = _attn_calls(cfg)
+    per_step = calls["self"] + calls["cross"]
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    expect = {name: 0 for name in wrappers}
+    expect["decode_attn"] = n * per_step
+    if launches != expect:
+        raise AssertionError(f"{arch}: launched {launches}, expected "
+                             f"{expect}")
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (
+            b, cfg.padded_vocab):
+        raise AssertionError(f"{arch}: logits {tuple(logits.shape)} not "
+                             f"finite")
+    if torch.cat(gen, dim=1).shape != (b, n + 1):
+        raise AssertionError(f"{arch}: generated {len(gen)} tokens")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    busy_us = sum(us for _, us in events)
+    attn_us = [us for name, us in events if "decode_attn_" in name]
+    kpl = wrappers["decode_attn"].kernels_per_launch
+    n_attn = LM_PROFILED_STEPS * per_step * kpl
+    # at most one dropped kernel event a traced step (see lm_serve)
+    if not n_attn - LM_PROFILED_STEPS <= len(attn_us) <= n_attn:
+        raise AssertionError(f"{arch}: profiled {len(attn_us)} decode_attn "
+                             f"kernels for {n_attn}")
+    by_name: dict[str, float] = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
+    step_ms = decode_s * 1e3 / timed
+    bound = [_family_step_bytes(cfg, params, cache, b, pos) / PEAK_BYTES_S
+             * 1e3 for pos in positions[:timed]]
+    rec = dict(
+        phase="b", arch=arch, n_layers=cfg.n_layers,
+        config_layers=full_layers, dtype=cfg.dtype, params=n_params,
+        params_gb=params_bytes / 1e9,
+        cache_gb=sum(t.numel() * t.element_size()
+                     for t in leaves(cache["stacks"])) / 1e9,
+        init_s=init_s, batch=b, prefix=prefix, prompt=s, decode_steps=n,
+        max_seq=max_seq, prefill_ms=prefill_ms,
+        decode_ms_per_step=step_ms, decode_steps_timed=timed,
+        tokens_per_s=b / step_ms * 1e3,
+        decode_bound_ms_per_step=statistics.mean(bound),
+        decode_bound_by="bytes", profiled_steps=LM_PROFILED_STEPS,
+        profiled_wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+        device_busy_share=busy_us / wall_us,
+        device_idle_share=1 - busy_us / wall_us, device_events=len(events),
+        decode_attn_in_path_ms=(sum(attn_us) / len(attn_us) * kpl / 1e3
+                                if attn_us else None),
+        decode_attn_events_dropped=n_attn - len(attn_us),
+        attn_calls_per_step=calls, positions=positions,
+        top=[dict(name=k[:80], ms=v / 1e3) for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:6]],
+        launches=launches, peak_memory_gb=peak_gb, logits_finite=True,
+        first_tokens=torch.cat(gen, dim=1)[0, :8].tolist())
+    print(f"lm_family {json.dumps(rec)}")
+    live = {}
+    for stack in cache["stacks"]:
+        for blk in stack.values():
+            for kind, c in (("self", blk.get("self", blk)),
+                            ("cross", blk.get("cross"))):
+                if c is not None and "k" in c and kind not in live:
+                    live[kind] = dict(k=c["k"][0].clone(),
+                                      v=c["v"][0].clone())
+    live.update(cfg=cfg, pos=cache["pos"])
+    del params, cache
+    torch.cuda.empty_cache()
+    return rec, live
+
+
+def family_kernel_cases(serve, live, dev) -> list[dict]:
+    """Phase (c) of one family: flash-decode against its plain version on
+    layer 0's live caches (bf16 q, as the decode path launches it), timed
+    beside its plain version, SDPA and the bound."""
+    import numpy as np
+    import torch
+    cfg = live["cfg"]
+    b, k_, g, hd = (LM_BATCH, cfg.n_kv_heads, cfg.q_groups,
+                    cfg.resolved_head_dim)
+    rng = np.random.default_rng(4)
+    recs = []
+    for kind in ("self", "cross"):
+        if kind not in live:
+            continue
+        ck, cv = live[kind]["k"], live[kind]["v"]
+        q = torch.from_numpy(rng.standard_normal((b, 1, k_, g, hd)).astype(
+            np.float32)).to(dev, ck.dtype)
+        n_valid = min(live["pos"], ck.shape[1]) if kind == "self" \
+            else ck.shape[1]
+        lens = torch.full((b,), n_valid, dtype=torch.int32, device=dev)
+        rec = decode_attn_case(f"{serve['arch']} {kind}, layer 0", q, ck, cv,
+                               lens, True)
+        rec.update(arch=serve["arch"], cache=kind)
+        recs.append(rec)
+    del live["self"]
+    live.pop("cross", None)
+    torch.cuda.empty_cache()
+    return recs
+
+
+def family_attn_totals(serve, cfg, cases) -> dict:
+    """decode_attn over one family's served run: launches by the counter;
+    ms, plain and library times at the live shape of each cache kind times
+    its launches; the bound summed over the run's launches at their own
+    lengths."""
+    n = serve["decode_steps"]
+    calls = serve["attn_calls_per_step"]
+    k_, g, hd = cfg.n_kv_heads, cfg.q_groups, cfg.resolved_head_dim
+    tot = dict(launches=serve["launches"]["decode_attn"], ms=0.0,
+               plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               max_abs_err=max(c["max_abs_err"] for c in cases),
+               in_path_ms=serve["launches"]["decode_attn"]
+               * serve["decode_attn_in_path_ms"])
+    for c in cases:
+        m = n * calls[c["cache"]]
+        tot["ms"] += m * (c["device_ms"] or c["event_ms"])
+        tot["plain_ms"] += m * c["plain_ms"]
+        tot["library_ms"] += m * c["library_ms"]
+        for pos in serve["positions"] if c["cache"] == "self" else [None] * n:
+            ln = c["S"] if pos is None else min(pos + 1, c["S"])
+            tot["bound_ms"] += calls[c["cache"]] * _decode_bound(
+                [ln] * LM_BATCH, k_, g, hd, 2, 2)[0]
+    return tot
+
+
+def lm_families_phase(dev) -> tuple[list[dict], list[dict], dict]:
+    """Phases (a)-(c) for each family config, one model at a time, each
+    freed before the next.  Returns the (a) and (b) records, the (c)
+    kernel records, and decode_attn's totals by family path."""
+    checks = [family_check_fp32(*c, dev) for c in FAMILY_CHECKS]
+    serves, cases, totals = [], [], {}
+    for arch, n_layers, s, n in FAMILY_SERVES:
+        rec, live = family_serve(arch, n_layers, s, n, dev)
+        cfg = live["cfg"]
+        recs = family_kernel_cases(rec, live, dev) if "self" in live else []
+        serves.append(rec)
+        cases += recs
+        if recs:
+            totals[f"lm_family/{arch}"] = family_attn_totals(rec, cfg, recs)
+    return checks + serves, cases, totals
 
 
 def main() -> int:
@@ -1626,8 +2015,18 @@ def main() -> int:
     serve, live = lm_serve(dev)
     torch.cuda.empty_cache()
     attn_recs = lm_kernel_phase(live, dev)
+    # the other five families: (a) fp32 checks, (b) bf16 serves, (c)
+    # flash-decode at each family's live shapes
+    t_fam = time.perf_counter()
+    fam_recs, fam_cases, fam_totals = lm_families_phase(dev)
+    fam_summary = dict(seconds=time.perf_counter() - t_fam,
+                       peak_memory_gb=max(r.get("peak_memory_gb", 0)
+                                          for r in fam_recs))
+    print(f"lm_families {json.dumps(fam_summary)}")
     (out_dir / "chip_smoke_lm.json").write_text(json.dumps(
-        dict(card=card, serve=serve, decode_attn=attn_recs), indent=1))
+        dict(card=card, serve=serve, decode_attn=attn_recs,
+             families=fam_recs, family_decode_attn=fam_cases,
+             family_totals=fam_totals), indent=1))
 
     source = {"qgemm": "src/repro_torch/csrc/qgemm.cu",
               "dwconv3x3_bands": "src/repro_torch/csrc/dwconv.cu",
@@ -1673,7 +2072,7 @@ def main() -> int:
                                       for r in rows) else "events",
             launches_by_path={p["mode"]: p["launches"][name] for p in paths},
             serving_launches=serving["launches"][name]))
-    line.append(decode_attn_line(serve, live, attn_recs))
+    line.append(decode_attn_line(serve, live, attn_recs, fam_totals))
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

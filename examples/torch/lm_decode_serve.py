@@ -2,12 +2,16 @@
 KV cache, then batched greedy decode, whose attention against the cache is
 the hand-written CUDA flash-decode kernel on the card; last, the kernel is
 checked against its plain version on the live cache.  The counterpart of
-``examples/lm_decode_serve.py``, with the same flags and stages; prompts
-and the check's query come from numpy seeds, the weights from
-``--seed``.
+``examples/lm_decode_serve.py``, with the same flags and stages; ``--arch``
+takes every config of ``repro_torch.configs`` and its ``-smoke`` variant,
+of every family: the audio family's prefill takes stub frame embeddings
+and the vlm family's stub patch embeddings, made from ``--seed``, as the
+prompts and the check's query are; the weights come from ``--seed`` too.
+The ssm family has no attention cache, so its run has no cross-check.
 
 Run:  PYTHONPATH=src python examples/torch/lm_decode_serve.py --tokens 16
-      (on CUDA; add ``--device cpu`` to run the plain versions on the CPU)
+      (on CUDA; add ``--device cpu`` to run the plain versions on the CPU;
+      ``--arch whisper-base-smoke`` and the like for the other families)
 """
 import argparse
 import time
@@ -41,10 +45,17 @@ def main():
     params = lm.init_model(cfg, args.seed, device=args.device)
     dev = params["embed"].device
     B, S = args.batch, args.prompt_len
-    max_seq = S + args.tokens + 1
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    max_seq = prefix + S + args.tokens + 1
     rng = np.random.default_rng(args.seed)
-    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(
-        dev)
+    prompts = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S))).to(dev)}
+    stub = {"audio": ("frames", cfg.n_audio_frames),
+            "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
+    if stub:      # the stub frontend's embeddings
+        name, n = stub
+        prompts[name] = torch.from_numpy(rng.standard_normal(
+            (B, n, cfg.d_model)).astype(np.float32)).to(dev)
 
     print(f"== prefill {B} requests x {S} tokens ({cfg.name}, {dev}) ==")
     cache = lm.init_cache(cfg, B, max_seq=max_seq, device=dev)
@@ -73,12 +84,18 @@ def main():
         print(f"  request {b}: {gen[b].tolist()}")
 
     print("== flash-decode kernel cross-check on the live cache ==")
-    blk = cache["stacks"][0]["0_attn"]
-    ck, cv = blk["k"][0], blk["v"][0]
+    attn = [blk.get("self", blk) for stack in cache["stacks"]
+            for blk in stack.values() if "k" in blk or "self" in blk]
+    if not attn:
+        print(f"no attention cache in {cfg.name} ({cfg.family}): decode "
+              f"launches no flash-decode")
+        return
+    ck, cv = attn[0]["k"][0], attn[0]["v"][0]
     hd = cfg.resolved_head_dim
     q = torch.from_numpy(rng.standard_normal(
         (B, 1, cfg.n_kv_heads, cfg.q_groups, hd)).astype(np.float32)).to(dev)
-    lens = torch.full((B,), cache["pos"], dtype=torch.int32, device=dev)
+    lens = torch.full((B,), min(cache["pos"], ck.shape[1]),
+                      dtype=torch.int32, device=dev)
     # block_s is the TPU kernel's cache tile: the CUDA kernel validates it
     # and tiles S its own way, so here it changes nothing
     got = flash_decode(q, ck, cv, lens, block_s=32)

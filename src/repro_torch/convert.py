@@ -8,10 +8,10 @@ the reference's ``ReinterpretedModel`` / ``QuantizedModel`` as plain
 numpy arrays and per-layer fields and build the port's objects from them.
 They duck-type their input and import nothing of ``repro``.
 
-The LM converters do the same for a reference LM's parameter tree and KV
-cache, given as nested dicts and lists of arrays (numpy, or anything
-``np.asarray`` takes, bf16 included), so that tests run both packages on
-the same weights and cache.
+The LM converters do the same for a reference LM's parameter tree and
+cache (KV and recurrent states, every family), given as nested dicts and
+lists of arrays (numpy, or anything ``np.asarray`` takes, bf16 included),
+so that tests run both packages on the same weights and cache.
 """
 from __future__ import annotations
 
@@ -109,18 +109,54 @@ def convert_lm_params(tree, cfg, device=None) -> dict:
     return walk(lm.model_defs(cfg), tree, "")
 
 
-def convert_lm_cache(ref_cache, device=None) -> dict:
-    """The port's KV cache from a reference one (``{"pos", "stacks"}``):
-    ``pos`` as a host int, every array as a tensor of its own dtype on
-    ``device`` (CUDA unless the caller asks for the CPU)."""
-    dev = resolve_device(device)
+def _layout(node):
+    """A dict's sorted keys, a list's length or an array's shape."""
+    if isinstance(node, Mapping):
+        return sorted(node)
+    if isinstance(node, (list, tuple)):
+        return len(node)
+    return tuple(node.shape) if hasattr(node, "shape") else np.shape(node)
 
-    def walk(node):
+
+def _cache_geometry(stacks) -> tuple[int, int]:
+    """(batch, max_seq) of a cache's stacks: the batch from any leaf, the
+    length from the longest self-attention cache (1 with none: no
+    recurrent state depends on it)."""
+    batch, seq = None, 1
+    for stack in stacks:
+        for blk in stack.values():
+            attn = blk.get("self", blk) if isinstance(blk, Mapping) else {}
+            if "kv_pos" in attn:
+                seq = max(seq, int(np.shape(attn["kv_pos"])[1]))
+            leaf = blk
+            while isinstance(leaf, Mapping):
+                leaf = next(iter(leaf.values()))
+            batch = int(np.shape(leaf)[1])
+    return batch or 1, seq
+
+
+def convert_lm_cache(ref_cache, cfg, device=None) -> dict:
+    """The port's cache for ``cfg`` from a reference one (``{"pos",
+    "stacks"}``, every family's KV and recurrent states): ``pos`` as a host
+    int, every array as a tensor of its own dtype on ``device`` (CUDA
+    unless the caller asks for the CPU).  Raises if the stacks' keys or
+    shapes differ from ``lm.init_cache``'s at the cache's own batch and
+    length."""
+    dev = resolve_device(device)
+    want = lm.init_cache(cfg, *_cache_geometry(ref_cache["stacks"]),
+                         device="meta")["stacks"]
+
+    def walk(node, want, path):
+        if _layout(node) != _layout(want):
+            raise ValueError(f"{path}: {_layout(node)}, where the cache of "
+                             f"{cfg.name} has {_layout(want)}")
         if isinstance(node, Mapping):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, want[k], f"{path}/{k}")
+                    for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return [walk(v) for v in node]
+            return [walk(v, want[i], f"{path}/{i}")
+                    for i, v in enumerate(node)]
         return _tensor(node, dev)
 
     return {"pos": int(np.asarray(ref_cache["pos"])),
-            "stacks": walk(ref_cache["stacks"])}
+            "stacks": walk(ref_cache["stacks"], want, "/stacks")}

@@ -756,3 +756,92 @@ def test_lm_decode_step_never_waits_on_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert cache["pos"] == 11 and bool(torch.isfinite(logits).all())
+
+
+# the LM families' decode shapes: (B, K, G, hd, S) of recurrentgemma-9b's
+# MQA ring (K 1, G 16, hd 256), dbrx-132b (G 6), whisper-base's cross cache
+# (hd 64 over 1500 frames, a ragged last tile) and self cache, deepseek-moe
+# (K 16, G 1) and llava-next-mistral-7b (G 4)
+FAMILY_DECODE_SHAPES = [(8, 1, 16, 256, 2048), (8, 8, 6, 128, 2057),
+                        (8, 8, 1, 64, 1500), (8, 8, 1, 64, 457),
+                        (8, 16, 1, 128, 2081), (8, 8, 4, 128, 2049)]
+
+
+@pytest.mark.parametrize("dtypes", ["bf16", "f32"])
+@pytest.mark.parametrize("b,k,g,hd,s", FAMILY_DECODE_SHAPES)
+def test_decode_attn_family_shapes_vs_plain(cuda, b, k, g, hd, s, dtypes):
+    """Ragged lengths (full, one slot, a few tiles) and, in bf16, peaked q
+    as well."""
+    q_dt, kv_dt = DECODE_DTYPES[dtypes]
+    q, ck, cv, _ = _decode_inputs(np.random.default_rng(s + g), b, k, g, hd,
+                                  s, cuda, q_dt, kv_dt)
+    lens = torch.tensor([s, 1, 200, s - 1, 64, 65, s // 2, 1000][:b],
+                        dtype=torch.int32, device=cuda).clamp(max=s)
+    for scale in ((1.0, 8.0) if kv_dt == torch.bfloat16 else (1.0,)):
+        qs = (q.float() * scale).to(q_dt)
+        got = flash_decode(qs, ck, cv, lens)
+        exp = flash_decode_ref(qs, ck, cv, lens)
+        torch.cuda.synchronize()
+        _assert_decode_close(got, exp, q_dt, kv_dt)
+
+
+FAMILY_SMOKE = ["deepseek-moe-16b-smoke", "dbrx-132b-smoke",
+                "recurrentgemma-9b-smoke", "xlstm-1.3b-smoke",
+                "whisper-base-smoke", "llava-next-mistral-7b-smoke"]
+
+
+def _family_inputs(cfg, b, s, dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                   device=dev)}
+    if cfg.family == "audio":
+        out["frames"] = torch.randn((b, cfg.n_audio_frames, cfg.d_model),
+                                    generator=gen, device=dev)
+    if cfg.family == "vlm":
+        out["patches"] = torch.randn((b, cfg.n_patches, cfg.d_model),
+                                     generator=gen, device=dev)
+    return out
+
+
+@pytest.mark.parametrize("arch", FAMILY_SMOKE)
+def test_family_decode_step_no_sync_and_kernel_launches(cuda, arch):
+    """Prefill, then decode steps (the hybrid's ring wrapping: a prompt of
+    20 over its window of 16) on the card: no step makes a synchronising
+    call, each launches ``decode_attn`` once per attention against a cache
+    (two per whisper decoder layer, none for xlstm), and the logits equal
+    the CPU's."""
+    cfg = get_config(arch)
+    params = lm.init_model(cfg, 0, device="cpu")
+    ps = {"cpu": params, cuda: map_defs(lambda t: t.to(cuda), params)}
+    inp = _family_inputs(cfg, 2, 20, cuda)
+    max_seq = 32
+    caches = {d: lm.init_cache(cfg, 2, max_seq, device=d) for d in ps}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    per_step = sum(ng * sum({"attn": 1, "moe": 1, "xattn": 2}.get(k, 0)
+                            for k in pattern)
+                   for pattern, ng in lm.pattern_stacks(cfg))
+    try:
+        out = {d: lm.forward(ps[d], {k: v.to(d) for k, v in inp.items()},
+                             cfg, "prefill", caches[d])[0] for d in ps}
+        torch.cuda.synchronize()
+        for _ in range(3):
+            tok = torch.argmax(out["cpu"], -1)[:, None]
+            tok_card = tok.to(cuda)
+            torch.cuda.synchronize()
+            before = decode_attn.launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out[cuda] = lm.forward(ps[cuda], {"tokens": tok_card}, cfg,
+                                       "decode", caches[cuda])[0]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert decode_attn.launches == before + per_step
+            out["cpu"] = lm.forward(params, {"tokens": tok}, cfg, "decode",
+                                    caches["cpu"])[0]
+            torch.testing.assert_close(out[cuda].cpu(), out["cpu"],
+                                       rtol=1e-4, atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert caches[cuda]["pos"] == (cfg.n_patches if cfg.family == "vlm"
+                                   else 0) + 23

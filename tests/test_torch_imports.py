@@ -31,6 +31,8 @@ PLANNER_RUNTIME_SLICE = (
 # the serving slice's modules, likewise
 SERVING_SLICE = ("serve/__init__.py", "serve/admission.py", "serve/qos.py",
                  "serve/scheduler.py", "serve/server.py", "serve/loadgen.py")
+# the LM families' modules, likewise
+FAMILIES_SLICE = ("nn/moe.py", "nn/recurrent.py")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -84,7 +86,7 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
 
 
 @pytest.mark.parametrize("rel", list(dict.fromkeys(
-    LM_SLICE + PLANNER_RUNTIME_SLICE + SERVING_SLICE)))
+    LM_SLICE + PLANNER_RUNTIME_SLICE + SERVING_SLICE + FAMILIES_SLICE)))
 def test_lm_slice_module_present_and_clean(rel):
     path = PORT / rel
     assert path in FILES
