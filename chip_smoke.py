@@ -116,14 +116,37 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
    (c) holds flash-decode against its plain version on each family's
        live layer-0 caches (whisper's self and cross), timed as in 8 (c);
    the family records join ``chiprun_out/chip_smoke_lm.json``;
-10. prints a JSON line of every kernel: its launches in the counted runs
+10. the training path (``train`` lines; ``chiprun_out/chip_smoke_train.json``),
+   which launches none of the repository's kernels (every counter stays 0):
+   (a) float32 with TF32 off: on each of the seven ``-smoke`` configs the
+       card's gradients and one donated train step equal the CPU's (loss,
+       grad norm, every gradient within 1e-5; updated params within 1e-5
+       where |g| > 1e-4, else 2 x lr), and at full width (``qwen3-14b``, 2
+       of 40 layers, 2 x 256 tokens, 128-row attention chunks under
+       autograd) the gradients with remat "full", "dots" and 2
+       microbatches equal those without remat within 1e-5 of each leaf's
+       largest;
+   (b) bf16 training at full width: ``qwen3-14b`` cut to 6 of 40 layers
+       (3.54 B parameters, 12 bytes of training state each), remat
+       "full", 1024-row attention chunks, batch 2 x 2048 tokens, 10 steps
+       of ``train_loop`` (every loss and grad norm finite), then 2 steps
+       under the profiler; prints ms a step after 2 warm-up steps,
+       tokens/s, the step's bound (bf16 matmuls, float32 attention,
+       AdamW's bytes) and its share, the card's busy and idle share, the
+       top 10 device ops and the peak memory (< 72 GB);
+   (c) the example's model (``examples/torch/train_small_lm.py``): 40
+       steps at 16 x 32 and lr 3e-3 lower the loss by more than 0.1; a run
+       killed at 6 (checkpoint at 3) and resumed to 10 ends within rtol
+       1e-4 of an uninterrupted one; a bf16 copy of its state round-trips
+       a checkpoint bit for bit;
+11. prints a JSON line of every kernel: its launches in the counted runs
    (the three engine plans and the in-process distributed run; for
    ``decode_attn`` the dense LM run and each family's), its largest error
    against its plain version, and the sums over those launches of its
    time, its bound, and the plain and library times at each launch's
    shape; a CNN kernel also carries its launches in the serving run
    (``serving_launches``);
-11. prints ``{"ok": true, "device": {...}}`` as the last line.
+12. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero, as does a machine without CUDA or a
 directory without the repository's ``src``.  Weights are random, made from
@@ -1907,6 +1930,402 @@ def lm_families_phase(dev) -> tuple[list[dict], list[dict], dict]:
     return checks + serves, cases, totals
 
 
+# -- training phase: lm_loss -> AdamW -> train step -> data -> checkpoint --
+
+TRAIN_ARCHS = ("qwen3-14b", "deepseek-moe-16b", "dbrx-132b",
+               "recurrentgemma-9b", "xlstm-1.3b", "whisper-base",
+               "llava-next-mistral-7b")
+# (a) float32, TF32 off: the card's step equals the CPU's (loss, grad norm,
+# every gradient) at 1e-5 on each -smoke config (batch x seq below); at
+# full width, qwen3-14b's 2 of 40 layers over 2 x 256 tokens with 128-row
+# attention chunks, gradients under each remat policy and with 2
+# microbatches agree within 1e-5 of each leaf's largest gradient
+TRAIN_TOL = 1e-5
+TRAIN_SMOKE_SHAPE = (2, 12)
+TRAIN_CHECK = dict(n_layers=2, batch=2, seq=256, attn_chunk=128)
+# Adam's first step is g / (|g| + eps): where |g| is near eps, 1e-6 of
+# gradient noise moves it by up to lr, so updated params are held at
+# TRAIN_TOL where |g| > TRAIN_BIG_GRAD and at 2 x lr elsewhere
+TRAIN_BIG_GRAD = 1e-4
+# (b) bf16 at full width: qwen3-14b cut to 6 of its 40 layers (training
+# state is 12 bytes a parameter: 3.54 B parameters take 42.5 GB; 8 layers
+# would pass 70 GB with the loss's logits), batch 2 x 2048 tokens, 10 steps
+# of train_loop, the first 2 untimed, then 2 more steps traced
+TRAIN_BF16 = dict(n_layers=6, batch=2, seq=2048, attn_chunk=1024, steps=10,
+                  warmup=2, traced=2, lr=3e-4)
+TRAIN_PEAK_GB = 72.0
+# (c) the example's model: 40 steps at 16 x 32, lr 3e-3, the loss falls by
+# more than 0.1 (tests/test_system.py:55-63); kill-and-resume at 4 x 16
+# (tests/test_system.py:66-82)
+TRAIN_EXAMPLE = dict(steps=40, batch=16, seq=32, lr=3e-3, drop=0.1)
+TRAIN_RESUME_RTOL = 1e-4
+
+
+def _train_batch(cfg, b, s, step=0):
+    """The loop's batch ``step``: SyntheticLM tokens, and the stub frames or
+    patches drawn as ``launch.train.train_loop`` draws them."""
+    import numpy as np
+    from repro_torch.data.pipeline import SyntheticLM
+    out = SyntheticLM(cfg.vocab_size, seed=0).batch(step, b, s)
+    stub = {"audio": ("frames", cfg.n_audio_frames),
+            "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
+    if stub:
+        out[stub[0]] = np.random.default_rng(step).standard_normal(
+            (b, stub[1], cfg.d_model)).astype(np.float32)
+    return out
+
+
+def train_check_smoke(arch, dev) -> dict:
+    """Phase (a), one -smoke config: loss_and_grads and one donated
+    train step on the card against the same on the CPU (same weights, same
+    batch), float32 with TF32 off: loss, grad norm and every gradient
+    within TRAIN_TOL, updated params as TRAIN_BIG_GRAD says."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import _full_fp32
+    from repro_torch.models import lm
+    from repro_torch.nn.layers import leaves, map_defs
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.trainer import (TrainOptions, loss_and_grads,
+                                           make_train_step, to_device)
+    cfg = get_config(arch + "-smoke")
+    ocfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    batch = _train_batch(cfg, *TRAIN_SMOKE_SHAPE)
+    cpu = lm.init_model(cfg, 0, device="cpu")
+    with _full_fp32():
+        out = {}
+        for d in ("cpu", dev):
+            # a copy each: the donated step updates it in place
+            params = map_defs(lambda t: t.to(d, copy=True), cpu)
+            loss, grads = loss_and_grads(params, to_device(batch, d), cfg)
+            new, _, m = make_train_step(cfg, ocfg, TrainOptions(),
+                                        device=d)(
+                params, init_opt_state(params), batch)
+            out[d] = (float(loss), grads, new, {k: float(v)
+                                                for k, v in m.items()})
+    (loss_c, g_c, p_c, m_c), (loss_d, g_d, p_d, m_d) = out["cpu"], out[dev]
+    errs = [float((g.cpu() - e).abs().max())
+            for g, e in zip(leaves(g_d), leaves(g_c))]
+    for g, e in zip(leaves(g_d), leaves(g_c)):
+        if not torch.allclose(g.cpu(), e, rtol=TRAIN_TOL, atol=TRAIN_TOL):
+            raise AssertionError(f"train {arch}: card gradient differs from "
+                                 f"the CPU's by {max(errs)}")
+    for k in ("loss", "grad_norm", "lr"):
+        if abs(m_d[k] - m_c[k]) > TRAIN_TOL * (1 + abs(m_c[k])):
+            raise AssertionError(f"train {arch}: step {k} {m_d[k]} != "
+                                 f"{m_c[k]}")
+    upd_big, upd_small = 0.0, 0.0
+    for p, q, g in zip(leaves(p_d), leaves(p_c), leaves(g_c)):
+        err = (p.cpu() - q).abs()
+        big = g.abs() > TRAIN_BIG_GRAD
+        upd_big = max(upd_big, float(err[big].max()) if big.any() else 0.0)
+        upd_small = max(upd_small, float(err.max()))
+    if upd_big > TRAIN_TOL or upd_small > 2 * m_c["lr"]:
+        raise AssertionError(f"train {arch}: updated params differ by "
+                             f"{upd_big} (|g| > {TRAIN_BIG_GRAD}), "
+                             f"{upd_small} (all)")
+    return dict(arch=arch + "-smoke", loss=loss_d, loss_err=abs(loss_d - loss_c),
+                grad_norm=m_d["grad_norm"], leaves=len(errs),
+                max_abs_grad_err=max(errs), max_param_err_big_grad=upd_big,
+                max_param_err=upd_small)
+
+
+def train_check_full_width(dev) -> dict:
+    """Phase (a) at full width: qwen3-14b cut to TRAIN_CHECK's layers, in
+    float32 with TF32 off, over chunked attention under autograd.  The
+    gradients with remat off are the reference for remat "full", "dots"
+    and for 2 microbatches (with "full")."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import _full_fp32
+    from repro_torch.models import lm
+    from repro_torch.nn.layers import leaves
+    from repro_torch.train.trainer import loss_and_grads, to_device
+    c = TRAIN_CHECK
+    cfg = dataclasses.replace(get_config("qwen3-14b"), n_layers=c["n_layers"],
+                              dtype="float32", attn_chunk=c["attn_chunk"])
+    batch = to_device(_train_batch(cfg, c["batch"], c["seq"]), dev)
+    rel = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _full_fp32():
+        params = lm.init_model(cfg, 0, device=dev)
+        loss0, ref = loss_and_grads(params, batch, dataclasses.replace(
+            cfg, remat=False))
+        for name, kw, micro in (("remat_full", dict(remat_policy="full"), 1),
+                                ("remat_dots", dict(remat_policy="dots"), 1),
+                                ("microbatches_2",
+                                 dict(remat_policy="full"), 2)):
+            loss, grads = loss_and_grads(params, batch, dataclasses.replace(
+                cfg, remat=True, **kw), microbatches=micro)
+            worst = max(float((g.float() - e).abs().max())
+                        / max(float(e.abs().max()), 1e-30)
+                        for g, e in zip(leaves(grads), leaves(ref)))
+            rel[name] = dict(max_rel_grad_err=worst,
+                             loss_err=abs(float(loss) - float(loss0)))
+            if worst > TRAIN_TOL or rel[name]["loss_err"] > TRAIN_TOL * (
+                    1 + abs(float(loss0))):
+                raise AssertionError(f"train full width {name}: gradients "
+                                     f"differ by {worst} of the largest")
+            del grads
+    torch.cuda.synchronize()
+    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, dtype="float32",
+               batch=c["batch"], seq=c["seq"], attn_chunk=cfg.attn_chunk,
+               loss=float(loss0), tol=TRAIN_TOL, checks=rel,
+               seconds=time.perf_counter() - t0,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_step_ops(cfg, params, b: int, s: int) -> dict:
+    """Operations one bf16 train step does, from the code's shapes: every
+    matmul (the layers' and the head's, not the embedding lookup) forward
+    once, again under the layer remat, and twice in backward; the float32
+    attention (scores and probabilities x V over every (query, key) pair of
+    each chunk, as ``_attend`` computes them) forward, under the layer
+    remat, under the chunk checkpoint in backward, and twice in backward.
+    Bytes of the AdamW pass: bf16 params read and written, bf16 grads read,
+    float32 m and v read and written."""
+    from repro_torch.nn.layers import leaves
+    t = b * s
+    layer = sum(x.numel() for x in leaves(params["stacks"])
+                if x.dim() >= 3)               # (layers, in, out...) weights
+    head = params["lm_head"].numel()
+    mm = 2.0 * t * (3 * (layer + head) + layer)
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    attn = 4.0 * b * h * s * s * hd * cfg.n_layers * 5
+    n = sum(x.numel() for x in leaves(params))
+    return dict(matmul_ops=mm, attention_ops=attn, adamw_bytes=22.0 * n,
+                params=n)
+
+
+def _op_class(name: str) -> str:
+    """A device op's class by its kernel name: float32 GEMMs (the
+    attention's einsums, on CUDA cores), other GEMMs (bf16 on tensor
+    cores: cuBLAS's nvjet and xmma kernels), softmax, reductions, copies
+    and casts, other elementwise kernels."""
+    low = name.lower()
+    if "gemm" in low or "nvjet" in low:
+        return "gemm_f32" if "f32f32" in low or "sgemm" in low else "gemm"
+    if "softmax" in low:
+        return "softmax"
+    if "reduce" in low:
+        return "reduce"
+    if "copy" in low or "memcpy" in low or "memset" in low:
+        return "copy"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
+def train_bf16(dev) -> dict:
+    """Phase (b): qwen3-14b at full width, cut to TRAIN_BF16's layers, bf16,
+    remat "full": TRAIN_BF16["steps"] steps of ``train_loop`` (ms a step by
+    the host clock after the warm-up steps, every loss and grad norm finite),
+    then TRAIN_BF16["traced"] more steps of ``make_train_step`` under the
+    profiler (busy and idle share, top device ops, device time by op
+    class), then one step's gradients and its AdamW update timed apart;
+    peak memory over all."""
+    import dataclasses
+    import math as m_
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.optimizer import OptConfig, adamw_update
+    from repro_torch.train.trainer import (TrainOptions, loss_and_grads,
+                                           make_train_step, to_device)
+    c = TRAIN_BF16
+    cfg = dataclasses.replace(get_config("qwen3-14b"), n_layers=c["n_layers"],
+                              remat=True, remat_policy="full",
+                              attn_chunk=c["attn_chunk"])
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{cfg.name} trains in {cfg.dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    marks, metrics = [], []
+
+    def on_step(i, m):
+        marks.append(time.perf_counter())
+        metrics.append(dict(step=i, **m))
+
+    t0 = time.perf_counter()
+    params, state, losses = train_loop(
+        cfg, steps=c["steps"], batch=c["batch"], seq=c["seq"], ckpt_dir=None,
+        device=dev, lr=c["lr"], log_every=5, on_step=on_step)
+    loop_s = time.perf_counter() - t0
+    if len(losses) != c["steps"] or not all(
+            m_.isfinite(m["loss"]) and m_.isfinite(m["grad_norm"])
+            for m in metrics):
+        raise AssertionError(f"train bf16: losses {losses}")
+    timed = [b - a for a, b in zip(marks[c["warmup"]:], marks[c["warmup"]
+                                                              + 1:])]
+    step_ms = sum(timed) / len(timed) * 1e3
+    # the loop's schedule, continued for the traced steps
+    ocfg = OptConfig(lr=c["lr"], warmup_steps=max(c["steps"] // 20, 5),
+                     total_steps=c["steps"])
+    step = make_train_step(cfg, ocfg, TrainOptions(), device=dev)
+    carry = [params, state]
+    batches = [_train_batch(cfg, c["batch"], c["seq"], c["steps"] + i)
+               for i in range(c["traced"])]
+
+    def one():
+        carry[0], carry[1], mt = step(carry[0], carry[1],
+                                      batches.pop(0))
+        return mt
+
+    events, wall_us, mt = trace_calls(one, c["traced"])
+    traced_loss = float(mt["loss"])
+    # a step's halves alone, by the host clock around synchronised work:
+    # the loss and its gradients, then the AdamW update
+    batch = to_device(_train_batch(cfg, c["batch"], c["seq"],
+                                   c["steps"] + c["traced"]), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = loss_and_grads(carry[0], batch, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(grads, carry[1], carry[0], ocfg, in_place=True)
+    torch.cuda.synchronize()
+    split_ms = dict(loss_and_grads=(t1 - t0) * 1e3,
+                    adamw_update=(time.perf_counter() - t1) * 1e3)
+    del grads
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if peak_gb >= TRAIN_PEAK_GB or not m_.isfinite(traced_loss):
+        raise AssertionError(f"train bf16: peak {peak_gb} GB, traced loss "
+                             f"{traced_loss}")
+    by_name: dict[str, float] = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
+    busy_us = sum(by_name.values())
+    by_class: dict[str, float] = {}
+    for name, us in by_name.items():
+        by_class[_op_class(name)] = by_class.get(_op_class(name), 0.0) + us
+    ops = _train_step_ops(cfg, carry[0], c["batch"], c["seq"])
+    mm_ms = ops["matmul_ops"] / PEAK_BF16_OPS_S * 1e3
+    attn_ms = ops["attention_ops"] / PEAK_F32_OPS_S * 1e3
+    adamw_ms = ops["adamw_bytes"] / PEAK_BYTES_S * 1e3
+    bound = mm_ms + attn_ms + adamw_ms
+    tokens = c["batch"] * c["seq"]
+    rec = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, of_layers=get_config(
+            "qwen3-14b").n_layers, dtype=cfg.dtype, remat=cfg.remat_policy,
+        attn_chunk=cfg.attn_chunk, batch=c["batch"], seq=c["seq"],
+        params=ops["params"], steps=c["steps"], warmup_steps=c["warmup"],
+        loop_s=loop_s, ms_per_step=step_ms, step_ms=[x * 1e3 for x in timed],
+        tokens_per_s=tokens / step_ms * 1e3,
+        matmul_ops=ops["matmul_ops"], attention_ops=ops["attention_ops"],
+        adamw_bytes=ops["adamw_bytes"], bound_ms=dict(
+            matmul_bf16=mm_ms, attention_f32=attn_ms, adamw_bytes=adamw_ms,
+            total=bound),
+        bound_share=bound / step_ms,
+        traced_steps=c["traced"], traced_wall_ms=wall_us / 1e3,
+        device_busy_ms=busy_us / 1e3, device_busy_share=busy_us / wall_us,
+        device_idle_share=1 - busy_us / wall_us, device_events=len(events),
+        top=[dict(name=k[:80], ms=v / 1e3) for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:10]],
+        device_ms_by_class={k: v / 1e3 for k, v in sorted(
+            by_class.items(), key=lambda kv: -kv[1])},
+        split_ms=split_ms, peak_memory_gb=peak_gb, losses=losses,
+        grad_norms=[m["grad_norm"] for m in metrics], traced_loss=traced_loss)
+    del params, state, carry
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_example(dev, out_dir) -> dict:
+    """Phase (c): the example's model (``examples/torch/train_small_lm.py``)
+    learns at its own size; a run killed at step 6 (checkpoint at 3) and
+    resumed to 10 ends where an uninterrupted one does; a bf16 copy of
+    the state round-trips a checkpoint bit for bit."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.ckpt.checkpoint import (latest_step, restore_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.launch.train import train_loop
+    from repro_torch.nn.layers import leaves, map_defs
+    spec = importlib.util.spec_from_file_location(
+        "train_small_lm", ROOT / "examples" / "torch" / "train_small_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = example.small_config()
+    e = TRAIN_EXAMPLE
+    t0 = time.perf_counter()
+    _, _, losses = train_loop(cfg, steps=e["steps"], batch=e["batch"],
+                              seq=e["seq"], ckpt_dir=None, lr=e["lr"],
+                              device=dev, log_every=100)
+    learn_s = time.perf_counter() - t0
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first - e["drop"]:
+        raise AssertionError(f"train example: loss {first} -> {last}")
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_",
+                                     dir=out_dir) as tmp:
+        d1, d2, d3 = (str(Path(tmp) / n) for n in "abc")
+        kw = dict(batch=4, seq=16, log_every=100, device=dev)
+        train_loop(cfg, steps=6, ckpt_dir=d1, ckpt_every=3,
+                   schedule_steps=10, **kw)
+        if latest_step(d1) != 6:
+            raise AssertionError(f"train resume: latest step {latest_step(d1)}")
+        params, state, resumed = train_loop(cfg, steps=10, ckpt_dir=d1,
+                                            ckpt_every=100, **kw)
+        _, _, full = train_loop(cfg, steps=10, ckpt_dir=d2, ckpt_every=100,
+                                **kw)
+        if len(resumed) != 4 or abs(resumed[-1] - full[-1]) > \
+                TRAIN_RESUME_RTOL * abs(full[-1]):
+            raise AssertionError(f"train resume: {resumed} vs {full}")
+        tree = {"params": map_defs(lambda t: t.to(torch.bfloat16), params),
+                "opt": state}
+        save_checkpoint(d3, 10, tree)
+        back = restore_checkpoint(d3, 10, tree, device=dev)
+        for a, b in zip(leaves(tree), leaves(back)):
+            if a.dtype != b.dtype or a.device != b.device or not torch.equal(
+                    a.reshape(-1).view(torch.uint8), b.reshape(-1).view(
+                        torch.uint8)):
+                raise AssertionError("train bf16 checkpoint: not bit-exact")
+    return dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                params=sum(t.numel() for t in leaves(params)),
+                steps=e["steps"], batch=e["batch"], seq=e["seq"], lr=e["lr"],
+                loss_first5=first, loss_last5=last, learn_s=learn_s,
+                resumed_last_loss=resumed[-1], uninterrupted_last_loss=full[-1],
+                resume_rtol=TRAIN_RESUME_RTOL,
+                bf16_checkpoint_leaves=len(leaves(tree)),
+                bf16_checkpoint_bit_exact=True)
+
+
+def train_phase(dev, out_dir, card: str) -> dict:
+    """The training path: (a) float32 checks, (b) bf16 training at full
+    width, (c) the example.  The path launches none of the repository's
+    kernels: every counter must stay 0."""
+    t0 = time.perf_counter()
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    smoke = [train_check_smoke(arch, dev) for arch in TRAIN_ARCHS]
+    for rec in smoke:
+        print(f"train {json.dumps(dict(phase='a', **rec))}")
+    full = train_check_full_width(dev)
+    print(f"train {json.dumps(dict(phase='a', **full))}")
+    bf16 = train_bf16(dev)
+    print(f"train {json.dumps(dict(phase='b', **bf16))}")
+    example = train_example(dev, out_dir)
+    print(f"train {json.dumps(dict(phase='c', **example))}")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    if any(launches.values()):
+        raise AssertionError(f"the training path launched {launches}")
+    summary = dict(seconds=time.perf_counter() - t0, kernel_launches=launches,
+                   peak_memory_gb=bf16["peak_memory_gb"], card=card)
+    print(f"train_phase {json.dumps(summary)}")
+    return dict(smoke=smoke, full_width=full, bf16=bf16, example=example,
+                **summary)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2027,6 +2446,13 @@ def main() -> int:
         dict(card=card, serve=serve, decode_attn=attn_recs,
              families=fam_recs, family_decode_attn=fam_cases,
              family_totals=fam_totals), indent=1))
+
+    # the training path: (a) float32 checks, (b) bf16 training of qwen3-14b
+    # at full width and cut depth, (c) the example's model
+    torch.cuda.empty_cache()
+    train = train_phase(dev, out_dir, card)
+    (out_dir / "chip_smoke_train.json").write_text(json.dumps(train,
+                                                              indent=1))
 
     source = {"qgemm": "src/repro_torch/csrc/qgemm.cu",
               "dwconv3x3_bands": "src/repro_torch/csrc/dwconv.cu",

@@ -11,7 +11,9 @@ They duck-type their input and import nothing of ``repro``.
 The LM converters do the same for a reference LM's parameter tree and
 cache (KV and recurrent states, every family), given as nested dicts and
 lists of arrays (numpy, or anything ``np.asarray`` takes, bf16 included),
-so that tests run both packages on the same weights and cache.
+so that tests run both packages on the same weights and cache;
+:func:`convert_train_state` carries a training state (params and AdamW
+moments) across, so that both start a step from the same state.
 """
 from __future__ import annotations
 
@@ -79,13 +81,14 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def convert_lm_params(tree, cfg, device=None) -> dict:
+def convert_lm_params(tree, cfg, device=None, dtype=None) -> dict:
     """The port's params for ``cfg`` from a reference LM's parameter tree
     (``lm.init_model``'s dict/list structure, leaves as arrays), cast to
-    ``cfg.dtype`` on ``device`` (CUDA unless the caller asks for the CPU).
-    Raises if the tree's keys or shapes differ from ``lm.model_defs``."""
+    ``dtype`` (default ``cfg.dtype``) on ``device`` (CUDA unless the caller
+    asks for the CPU).  Raises if the tree's keys or shapes differ from
+    ``lm.model_defs``."""
     dev = resolve_device(device)
-    dtype = torch_dtype(cfg.dtype)
+    dtype = torch_dtype(dtype or cfg.dtype)
 
     def walk(defs, node, path):
         if isinstance(defs, dict):
@@ -107,6 +110,19 @@ def convert_lm_params(tree, cfg, device=None) -> dict:
         return t
 
     return walk(lm.model_defs(cfg), tree, "")
+
+
+def convert_train_state(ref_params, ref_opt, cfg, device=None):
+    """The port's (params, opt_state) from a reference training state:
+    params as :func:`convert_lm_params`, the moments ``m`` and ``v`` in
+    float32 and ``step`` as an int32 scalar tensor, all on ``device`` (CUDA
+    unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    opt = {name: convert_lm_params(ref_opt[name], cfg, dev, torch.float32)
+           for name in ("m", "v")}
+    opt["step"] = torch.tensor(int(np.asarray(ref_opt["step"])),
+                               dtype=torch.int32, device=dev)
+    return convert_lm_params(ref_params, cfg, dev), opt
 
 
 def _layout(node):

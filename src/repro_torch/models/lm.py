@@ -12,9 +12,15 @@ reference scans a stack; the port loops over that axis.
   ssm         : [('mlstm' x (k-1), 'slstm') x L//k] (+ remainder)
   audio       : encoder [('enc_attn',) x Le] + decoder [('xattn',) x Ld]
 
-Execution modes: 'train' (logits, no gradient; the loss waits for the
-training slice), 'prefill' (last-position logits + the KV and recurrent
-caches filled) and 'decode' (one token against the caches).  The
+Execution modes: 'train' (logits, recorded by autograd where it is on;
+:func:`lm_loss` is the next-token loss over them), 'prefill'
+(last-position logits + the KV and recurrent caches filled) and 'decode'
+(one token against the caches); prefill and decode run under
+``torch.no_grad``, so serving builds no graph.  Where autograd records,
+each layer of a stack runs under ``torch.utils.checkpoint`` as
+``cfg.remat`` / ``cfg.remat_policy`` say (the reference's per-layer
+``jax.checkpoint``): ``"full"`` keeps the layer's input alone,
+``"dots"`` keeps its matmul outputs too.  The
 modality frontends of the audio and vlm families are stubs, as in the
 reference: inputs carry precomputed frame or patch embeddings.
 ``abstract_model`` and ``model_spec_tree`` wait for the mesh slice, and
@@ -35,17 +41,21 @@ reference masks the same slots with ``kv_pos``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from ..core.executor import resolve_device
 from ..kernels.decode_attn.ops import flash_decode
-from ..nn.attention import gqa_attention, update_cache
+from ..nn.attention import NEG_INF, gqa_attention, update_cache
 from ..nn.layers import (ParamDef, apply_norm, apply_rope, gelu, init_params,
-                         map_defs, norm_defs, rmsnorm, swish, torch_dtype)
+                         leaves, map_defs, norm_defs, rmsnorm, swish,
+                         torch_dtype)
 from ..nn.moe import moe_defs, moe_ffn
 from ..nn.recurrent import (causal_conv1d, mlstm_defs, mlstm_sequence,
                             mlstm_step, rglru_block, rglru_defs, slstm_defs,
@@ -476,19 +486,53 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
 # top-level forward
 # ---------------------------------------------------------------------------
 
+# matmul outputs, which the "dots" policy keeps (jax's checkpoint_dots)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, x, cfg: ModelConfig):
+    """fn(x) under the layer checkpoint that ``cfg.remat_policy`` names."""
+    if cfg.remat_policy == "dots":
+        return checkpoint(fn, x, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_dots))
+    if cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return checkpoint(fn, x, use_reentrant=False)
+
+
 def _run_stacks(params, x, ctx: Ctx, cache, stacks):
     """Run each stack's layers in order, one slice of the stacked params
-    (and cache) at a time.  Returns x."""
+    (and cache) at a time.  Returns x.  Where autograd records a stack's
+    params and ``cfg.remat`` is set, each layer of the pattern (one step
+    of the reference's scan) is a checkpoint."""
+    cfg = ctx.cfg
     for si, (pattern, ng) in enumerate(stacks):
         stack_params = params["stacks"][si]
         stack_cache = None if cache is None else cache["stacks"][si]
-        for layer in range(ng):
+
+        def body(x, layer, stack_params=stack_params,
+                 stack_cache=stack_cache, pattern=pattern):
             for i, kind in enumerate(pattern):
                 key = f"{i}_{kind}"
                 gp = map_defs(lambda t: t[layer], stack_params[key])
                 bc = None if stack_cache is None else map_defs(
                     lambda t: t[layer], stack_cache[key])
                 x = apply_block(kind, gp, x, ctx, bc)
+            return x
+
+        remat = cfg.remat and torch.is_grad_enabled() and any(
+            t.requires_grad for t in leaves(stack_params))
+        for layer in range(ng):
+            x = _remat(functools.partial(body, layer=layer), x, cfg) \
+                if remat else body(x, layer)
     return x
 
 
@@ -504,20 +548,29 @@ def _frontend_input(inputs: dict, name: str, want: int, cfg, dev, dt):
     return t
 
 
-@torch.no_grad()
 def forward(params, inputs: dict, cfg: ModelConfig, mode: str = "train",
             cache=None):
     """inputs: {'tokens': (B, S)} [+ 'frames' (B, F, d) | 'patches'
     (B, P, d) outside decode], on the params' device (or host arrays).
 
-    train   -> logits (B, S_total, V)
+    train   -> logits (B, S_total, V), recorded by autograd where it is on
+               and a param requires grad
     prefill -> (last-position logits (B, V), cache filled in place)
     decode  -> (logits (B, V), cache updated in place); tokens is (B, 1)
+
+    Prefill and decode run under ``torch.no_grad``.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mode != "train" and cache is None:
+    if mode == "train":
+        return _forward(params, inputs, cfg, mode, None)
+    if cache is None:
         raise ValueError(f"mode {mode!r} needs a cache (lm.init_cache)")
+    with torch.no_grad():
+        return _forward(params, inputs, cfg, mode, cache)
+
+
+def _forward(params, inputs: dict, cfg: ModelConfig, mode: str, cache):
     stacks = pattern_stacks(cfg)
     dt = torch_dtype(cfg.dtype)
     dev = params["embed"].device
@@ -569,3 +622,31 @@ def forward(params, inputs: dict, cfg: ModelConfig, mode: str = "train",
         return x[:, -1, :] @ head, cache
     cache["pos"] = pos0 + 1
     return x[:, 0, :] @ head, cache
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(params, batch: dict, cfg: ModelConfig):
+    """Next-token cross entropy in float32 (prefix positions from stub
+    frontends and the final position are excluded; padded vocab columns
+    are masked to -1e30).  batch: inputs + optional 'loss_mask' (B, S),
+    whose ``[:, 1:]`` weighs each target; the sum is divided by
+    ``max(mask.sum(), 1)``."""
+    logits = forward(params, batch, cfg, mode="train")
+    dev = logits.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    prefix = logits.shape[1] - tokens.shape[1]
+    tgt = tokens[:, 1:]
+    lg = logits[:, prefix:-1, :].float()
+    if cfg.padded_vocab != cfg.vocab_size:   # mask padded vocab columns
+        pad = torch.arange(cfg.padded_vocab, device=dev) >= cfg.vocab_size
+        lg = lg.masked_fill(pad, NEG_INF)
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
+    nll = logz - gold
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(nll) if mask is None else torch.as_tensor(
+        mask, device=dev)[:, 1:].float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,6 +1,6 @@
 """Grouped-query attention (full / sliding-window / decode-with-cache), ported
 from ``repro/nn/attention.py``, with an optional q-chunked loop so prefill
-at long contexts does not hold every (Sq, Sk) score at once.
+and training at long contexts do not hold every (Sq, Sk) score at once.
 
 Logits, softmax and both products accumulate in float32 whatever the
 activation dtype; the probabilities are cast to ``v``'s dtype before the PV
@@ -9,9 +9,11 @@ product, as the reference does.  Shapes: q (B, Sq, K, G, hd); k, v
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -48,20 +50,28 @@ def gqa_attention(q, k, v, *, q_pos, kv_pos, kv_valid=None, causal=True,
 
     q_pos: (B, Sq) absolute positions; kv_pos: (B, Sk); kv_valid: (B, Sk)
     bool (False for unwritten cache slots).  chunk > 0 walks the query
-    dimension in chunks (memory O(Sk * chunk) instead of O(Sq * Sk)); the
-    reference's ``checkpoint`` around each chunk serves a backward pass,
-    which serving does not have.
+    dimension in chunks (memory O(Sk * chunk) instead of O(Sq * Sk)); where
+    autograd records, each chunk is a checkpoint, as in the reference.
     """
     b, sq, kdim, g, hd = q.shape
     if kv_valid is None:
         kv_valid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
 
     if chunk and sq > chunk and sq % chunk == 0:
+        def step(qc, qp):
+            bias = _mask_bias(qp, kv_pos, kv_valid, causal, local_window)
+            return _attend(qc, k, v, bias)
+
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            # recompute each chunk's scores and probabilities in the
+            # backward pass, as the reference's checkpoint does: else every
+            # chunk's float32 (B, K, G, chunk, Sk) tensors stay saved
+            step = functools.partial(checkpoint, step, use_reentrant=False)
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         for c0 in range(0, sq, chunk):
-            bias = _mask_bias(q_pos[:, c0:c0 + chunk], kv_pos, kv_valid,
-                              causal, local_window)
-            out[:, c0:c0 + chunk] = _attend(q[:, c0:c0 + chunk], k, v, bias)
+            out[:, c0:c0 + chunk] = step(q[:, c0:c0 + chunk],
+                                         q_pos[:, c0:c0 + chunk])
         return out
     bias = _mask_bias(q_pos, kv_pos, kv_valid, causal, local_window)
     return _attend(q, k, v, bias).to(q.dtype)

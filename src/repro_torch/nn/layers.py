@@ -61,6 +61,22 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def unflatten(template, flat):
+    """A tree shaped like ``template`` whose leaves are ``flat``, taken in
+    the order of :func:`leaves`."""
+    it = iter(flat)
+
+    def walk(node):
+        if isinstance(node, dict):
+            out = {k: walk(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return next(it)
+
+    return walk(template)
+
+
 def _std(d: ParamDef) -> float:
     fan_in = d.shape[0] if len(d.shape) == 1 else int(np.prod(d.shape[:-1]))
     # stacked-layer params: leading 'layers' axis is not fan-in

@@ -1,2 +1,4 @@
-"""Serving steps of the LM stack (:mod:`.serve`), ported from
-``repro/train``.  The optimizer and trainer wait for the training slice."""
+"""Training and serving steps of the LM stack, ported from ``repro/train``:
+AdamW (:mod:`.optimizer`), the single-device train step (:mod:`.trainer`)
+and the prefill and decode steps (:mod:`.serve`)."""
+from . import optimizer, serve, trainer

@@ -845,3 +845,152 @@ def test_family_decode_step_no_sync_and_kernel_launches(cuda, arch):
         torch.backends.cuda.matmul.allow_tf32 = prev
     assert caches[cuda]["pos"] == (cfg.n_patches if cfg.family == "vlm"
                                    else 0) + 23
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+TRAIN_SMOKE = ["qwen3-14b-smoke"] + FAMILY_SMOKE
+
+
+def _train_batch(cfg, b, s, seed=0):
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)}
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (b, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal(
+            (b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("arch", TRAIN_SMOKE)
+def test_train_grads_and_step_on_card_equal_cpu(cuda, arch):
+    """float32 with TF32 off: the card's loss equals the CPU's at 1e-5, and
+    every gradient at rtol 1e-5 and an atol of 1e-5 x the leaf's largest
+    gradient where that exceeds 1 (an embedding row sums every position's
+    contribution, and the card sums in another order); a donated step's
+    loss and grad norm at 1e-5; its params at 1e-5 where |g| > 1e-4 (else
+    within 2 x lr: Adam's first step flips g / (|g| + eps) where |g| is
+    near eps)."""
+    from repro_torch.core.executor import _full_fp32
+    from repro_torch.nn.layers import leaves
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.trainer import (TrainOptions, loss_and_grads,
+                                           make_train_step, to_device)
+    cfg = get_config(arch)
+    params = lm.init_model(cfg, 0, device="cpu")
+    batch = _train_batch(cfg, 2, 12)
+    ocfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    out = {}
+    with _full_fp32():
+        for d in ("cpu", cuda):
+            p = map_defs(lambda t: t.to(d, copy=True), params)
+            loss, grads = loss_and_grads(p, to_device(batch, d), cfg)
+            new, _, m = make_train_step(cfg, ocfg, TrainOptions(), device=d)(
+                p, init_opt_state(p), batch)
+            assert all(t is u for t, u in zip(leaves(new), leaves(p)))
+            out[d] = loss, grads, new, m
+    (loss_c, g_c, p_c, m_c), (loss_d, g_d, p_d, m_d) = out["cpu"], out[cuda]
+    torch.testing.assert_close(loss_d.cpu(), loss_c, rtol=1e-5, atol=1e-5)
+    for g, e in zip(leaves(g_d), leaves(g_c)):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), e, rtol=1e-5, atol=1e-5 * max(
+            1.0, float(e.abs().max())))
+    for k in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(m_d[k].cpu(), m_c[k], rtol=1e-5,
+                                   atol=1e-5)
+    for p, q, g in zip(leaves(p_d), leaves(p_c), leaves(g_c)):
+        err = (p.cpu() - q).abs()
+        big = g.abs() > 1e-4
+        if big.any():
+            assert float(err[big].max()) <= 1e-5
+        assert float(err.max()) <= 2 * float(m_c["lr"])
+
+
+@pytest.mark.parametrize("policy", [None, "full", "dots"])
+def test_remat_and_chunked_attention_on_card(cuda, policy):
+    """Chunked attention under autograd with each remat policy gives the
+    gradients of the unchunked forward without remat (float32, TF32 off),
+    and two microbatches give those of one batch."""
+    import dataclasses
+
+    from repro_torch.core.executor import _full_fp32
+    from repro_torch.nn.layers import leaves
+    from repro_torch.train.trainer import loss_and_grads, to_device
+    cfg = get_config("qwen3-14b-smoke")
+    params = lm.init_model(cfg, 0, device=cuda)
+    batch = to_device(_train_batch(cfg, 4, 16), cuda)
+    with _full_fp32():
+        _, ref = loss_and_grads(params, batch, dataclasses.replace(
+            cfg, remat=False, attn_chunk=0))
+        c = dataclasses.replace(cfg, remat=policy is not None,
+                                remat_policy=policy or "full", attn_chunk=4)
+        for micro in (1, 2):
+            _, grads = loss_and_grads(params, batch, c, microbatches=micro)
+            for g, e in zip(leaves(grads), leaves(ref)):
+                torch.testing.assert_close(g.float(), e, rtol=1e-5,
+                                           atol=1e-5)
+
+
+def test_train_loop_on_card_learns_and_resumes(cuda, tmp_path):
+    """The reference's system tests on the card: the loss falls, and a run
+    killed at step 6 and resumed to 10 ends where an uninterrupted one
+    does; the restored state lies on the card."""
+    from repro_torch.ckpt.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.launch.train import train_loop
+    from repro_torch.nn.layers import leaves
+    cfg = get_config("qwen3-14b-smoke")
+    _, _, losses = train_loop(cfg, steps=40, batch=16, seq=32, ckpt_dir=None,
+                              lr=3e-3, log_every=100)
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.1
+    d1, d2 = str(tmp_path / "a"), str(tmp_path / "b")
+    train_loop(cfg, steps=6, batch=4, seq=16, ckpt_dir=d1, ckpt_every=3,
+               log_every=100, schedule_steps=10)
+    params, state, resumed = train_loop(cfg, steps=10, batch=4, seq=16,
+                                        ckpt_dir=d1, ckpt_every=100,
+                                        log_every=100)
+    _, _, full = train_loop(cfg, steps=10, batch=4, seq=16, ckpt_dir=d2,
+                            ckpt_every=100, log_every=100)
+    np.testing.assert_allclose(resumed[-1], full[-1], rtol=1e-4)
+    assert latest_step(d1) == 10
+    back = restore_checkpoint(d1, 10, {"params": params, "opt": state})
+    assert all(t.device.type == "cuda" for t in leaves(back))
+
+
+def test_bf16_checkpoint_on_card_bit_exact(cuda, tmp_path):
+    import dataclasses
+
+    from repro_torch.ckpt.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.nn.layers import leaves
+    from repro_torch.train.trainer import init_train_state
+    cfg = dataclasses.replace(get_config("qwen3-14b-smoke"),
+                              dtype="bfloat16")
+    params, state = init_train_state(cfg, 0)
+    tree = {"params": params, "opt": state}
+    save_checkpoint(str(tmp_path), 1, tree, blocking=False).join(timeout=60)
+    back = restore_checkpoint(str(tmp_path), 1, tree)
+    for a, b in zip(leaves(tree), leaves(back)):
+        assert a.dtype == b.dtype and b.device == a.device
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+
+def test_lm_serving_on_card_records_no_graph(cuda):
+    """Prefill and decode on the card keep no autograd graph even with
+    params that require grad; the train forward records one."""
+    cfg = get_config("qwen3-14b-smoke")
+    params = map_defs(lambda t: t.requires_grad_(True),
+                      lm.init_model(cfg, 0, device=cuda))
+    cache = lm.init_cache(cfg, 2, 16, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), device=cuda)
+    logits, cache = lm.forward(params, {"tokens": tokens}, cfg, "prefill",
+                               cache)
+    assert not logits.requires_grad
+    logits, _ = lm.forward(params, {"tokens": tokens[:, :1]}, cfg, "decode",
+                           cache)
+    assert not logits.requires_grad and logits.grad_fn is None
+    assert lm.forward(params, {"tokens": tokens}, cfg).requires_grad

@@ -33,6 +33,11 @@ SERVING_SLICE = ("serve/__init__.py", "serve/admission.py", "serve/qos.py",
                  "serve/scheduler.py", "serve/server.py", "serve/loadgen.py")
 # the LM families' modules, likewise
 FAMILIES_SLICE = ("nn/moe.py", "nn/recurrent.py")
+# the training slice's modules, likewise
+TRAIN_SLICE = ("models/lm.py", "nn/attention.py", "train/optimizer.py",
+               "train/trainer.py", "data/pipeline.py", "ckpt/checkpoint.py",
+               "launch/train.py", "convert.py")
+EXAMPLES = ("train_small_lm.py",)
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -86,8 +91,16 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
 
 
 @pytest.mark.parametrize("rel", list(dict.fromkeys(
-    LM_SLICE + PLANNER_RUNTIME_SLICE + SERVING_SLICE + FAMILIES_SLICE)))
+    LM_SLICE + PLANNER_RUNTIME_SLICE + SERVING_SLICE + FAMILIES_SLICE
+    + TRAIN_SLICE)))
 def test_lm_slice_module_present_and_clean(rel):
     path = PORT / rel
+    assert path in FILES
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_present_and_clean(name):
+    path = ROOT / "examples" / "torch" / name
     assert path in FILES
     assert not _imported_roots(path) & set(FORBIDDEN)
