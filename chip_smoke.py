@@ -139,14 +139,36 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
        killed at 6 (checkpoint at 3) and resumed to 10 ends within rtol
        1e-4 of an uninterrupted one; a bf16 copy of its state round-trips
        a checkpoint bit for bit;
-11. prints a JSON line of every kernel: its launches in the counted runs
+11. the mesh on ``torch.distributed`` (``mesh_*`` lines;
+   ``chiprun_out/chip_smoke_mesh.json``): an in-process NCCL group of one
+   rank and a (1,1,1) ("pod", "data", "model") mesh, DTensor params and
+   caches placed by the rules:
+   (a) float32 with TF32 off, ``qwen3-14b`` and ``deepseek-moe-16b`` cut to
+       2 layers: 3 mesh train steps at (a)'s shape of step 10, then
+       prefill + 4 decode steps, against the single-device steps on the
+       card (losses rtol 1e-6, params and logits within 1e-6 of the
+       largest magnitude);
+   (b) step 10 (b)'s bf16 training through ``train_loop(mesh=)``: ms a
+       step, tokens/s and peak memory beside step 10 (b)'s;
+   (c) step 8 (b)'s full-depth bf16 serve through the mesh's prefill and
+       decode steps, every decode attention the kernel's log-sum-exp output
+       on the seq-sharded cache and the merge over the model group
+       (``decode_attn`` once a layer a step, no other kernel); prefill and
+       decode ms beside step 8 (b)'s; the log-sum-exp output held against
+       its plain version on the live cache and timed (its launches join
+       ``decode_attn``'s kernel line as ``mesh_decode``).
+   ``mesh_multi_card(world)`` (not called here) runs (a) and
+   qwen3-14b's bf16 training on a (world // 2, 2) mesh of one NCCL rank a
+   card;
+12. prints a JSON line of every kernel: its launches in the counted runs
    (the three engine plans and the in-process distributed run; for
-   ``decode_attn`` the dense LM run and each family's), its largest error
+   ``decode_attn`` the dense LM run, each family's and the mesh serve's),
+   its largest error
    against its plain version, and the sums over those launches of its
    time, its bound, and the plain and library times at each launch's
    shape; a CNN kernel also carries its launches in the serving run
    (``serving_launches``);
-12. prints ``{"ok": true, "device": {...}}`` as the last line.
+13. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero, as does a machine without CUDA or a
 directory without the repository's ``src``.  Weights are random, made from
@@ -2326,6 +2348,480 @@ def train_phase(dev, out_dir, card: str) -> dict:
                 **summary)
 
 
+# -- mesh phase: torch.distributed + DTensor, one NCCL rank ------------------
+
+MESH_SHAPE, MESH_AXES = (1, 1, 1), ("pod", "data", "model")
+# (a) float32, TF32 off: the mesh step against the single-device step of
+# PRs 17/18 on the same card: losses at rtol 1e-6, params and logits at
+# 1e-6 of the leaf's (the step's) largest magnitude
+MESH_ARCHS = ("qwen3-14b", "deepseek-moe-16b")
+MESH_TOL = 1e-6
+MESH_TRAIN_STEPS = 3
+MESH_SERVE = dict(batch=2, prompt=16, decode_steps=4)
+# (b) qwen3-14b, 6 of 40 layers, bf16, 2 x 2048, 10 steps of
+# train_loop(mesh=), as TRAIN_BF16; (c) the full-depth bf16 serve of
+# lm_serve through the mesh's steps
+MESH_PHASE_LIMIT_S = 60.0
+
+
+def release() -> float:
+    """Collect garbage (a checkpointed graph may sit in a reference
+    cycle), return the cached blocks to the card, and give the GB still
+    allocated."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def mesh_check_fp32(arch, mesh, dev, strict: bool = True) -> dict:
+    """Phase (a), one config cut to 2 layers in float32 with TF32 off:
+    MESH_TRAIN_STEPS train steps at TRAIN_CHECK's shape, then prefill and
+    MESH_SERVE's decode steps, through the mesh's steps against the
+    single-device steps on the same card, at MESH_TOL.  Not ``strict`` (a
+    mesh of several cards, whose sums run in other orders): losses and
+    logits at MULTI_CARD_TOL, and every param within Adam's bound of 2 x lr
+    a step of one device's (Adam turns a last-bit gradient difference into
+    a full step where |g| is near eps; tests/test_torch_mesh.py holds the
+    rest tighter); the largest error and its leaf are recorded."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import _full_fp32
+    from repro_torch.models import lm
+    from repro_torch.nn.layers import leaves
+    from repro_torch.parallel.sharding import is_dtensor
+    from repro_torch.train import serve
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import (TrainOptions, init_train_state,
+                                           make_train_step)
+    c = TRAIN_CHECK
+    cfg = dataclasses.replace(get_config(arch), n_layers=c["n_layers"],
+                              dtype="float32", attn_chunk=c["attn_chunk"])
+    ocfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    batches = [_train_batch(cfg, c["batch"], c["seq"], i)
+               for i in range(MESH_TRAIN_STEPS)]
+    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, dtype="float32",
+               batch=c["batch"], seq=c["seq"], tol=MESH_TOL,
+               allocated_before_gb=release())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _full_fp32():
+        step = make_train_step(cfg, ocfg, TrainOptions(), device=dev)
+        params, state = init_train_state(cfg, 0, device=dev)
+        single = []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            single.append(float(m["loss"]))
+        del state
+        mstep = make_train_step(cfg, ocfg, TrainOptions(), mesh=mesh)
+        mp, ms = init_train_state(cfg, 0, mesh=mesh, rules=mstep.rules)
+        got = []
+        for b in batches:
+            mp, ms, m = mstep(mp, ms, b)
+            got.append(float(m["loss"]))
+        del ms
+        from repro_torch.ckpt.checkpoint import _flatten
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, single))
+        errs = {key: (_rel_err(a.full_tensor(), b), float(
+            (a.full_tensor() - b).abs().max()))
+                for (key, a), b in zip(_flatten(mp).items(), leaves(params))}
+        worst = max(errs, key=lambda k: errs[k][0])
+        param_err = errs[worst][0]
+        abs_err = max(e[1] for e in errs.values())
+        rec.update(param_worst_leaf=worst, param_abs_err=abs_err,
+                   adam_bound=2 * ocfg.lr * MESH_TRAIN_STEPS)
+        if not all(is_dtensor(t) for t in leaves(mp)):
+            raise AssertionError(f"mesh {arch}: params left the mesh")
+        del mp, params
+        torch.cuda.empty_cache()
+        rec.update(train_losses=got, single_losses=single,
+                   loss_rel_err=loss_err, param_rel_err=param_err)
+        tol = MESH_TOL if strict else MULTI_CARD_TOL
+        if loss_err > tol or (param_err > tol if strict else
+                              abs_err > rec["adam_bound"]):
+            raise AssertionError(f"mesh {arch} train: losses {got} vs "
+                                 f"{single}, params {param_err}")
+        # prefill + decode steps: mesh against one device
+        sv = MESH_SERVE
+        b, s, n = sv["batch"], sv["prompt"], sv["decode_steps"]
+        max_seq = s + n + 1
+        rng = np.random.default_rng(1)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (b, s))).to(dev)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (n, b, 1))).to(dev)
+        outs = {}
+        for kind in ("single", "mesh"):
+            if kind == "single":
+                p = lm.init_model(cfg, 0, device=dev)
+                cache = lm.init_cache(cfg, b, max_seq, device=dev)
+                kw = dict(device=dev)
+            else:
+                rules = serve.serve_rules(mesh)
+                p = serve.init_serve_params(cfg, rules, 0)
+                cache = serve.place_cache(cfg, rules, b, max_seq)
+                kw = dict(mesh=mesh)
+            pre = serve.make_prefill_step(cfg, b, max_seq, **kw)
+            de = serve.make_decode_step(cfg, b, max_seq, **kw)
+            lg, cache = pre(p, cache, prompt)
+            seq = [lg]
+            for i in range(n):
+                lg, cache = de(p, cache, toks[i])
+                seq.append(lg)
+            outs[kind] = [x.full_tensor() if is_dtensor(x) else x
+                          for x in seq]
+            del p, cache
+        logit_err = max(_rel_err(a, b) for a, b in zip(outs["mesh"],
+                                                       outs["single"]))
+        rec.update(serve_batch=b, prompt=s, decode_steps=n,
+                   logits_rel_err=logit_err)
+        if logit_err > tol:
+            raise AssertionError(f"mesh {arch} serve: logits differ by "
+                                 f"{logit_err} of the largest")
+    torch.cuda.synchronize()
+    rec.update(seconds=time.perf_counter() - t0,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               allocated_after_gb=release())
+    return rec
+
+
+def mesh_train_bf16(mesh, dev, single=None, n_layers=None) -> dict:
+    """Phase (b): TRAIN_BF16's qwen3-14b cut (or ``n_layers``), through
+    train_loop(mesh=): ms a step after the warm-up steps, tokens/s, peak
+    memory, beside the single-device ``train`` (b) of the same run where
+    given."""
+    import dataclasses
+    import math as m_
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    c = TRAIN_BF16
+    cfg = dataclasses.replace(get_config("qwen3-14b"),
+                              n_layers=n_layers or c["n_layers"], remat=True,
+                              remat_policy="full", attn_chunk=c["attn_chunk"])
+    before = release()
+    torch.cuda.reset_peak_memory_stats()
+    marks, metrics = [], []
+
+    def on_step(i, m):
+        marks.append(time.perf_counter())
+        metrics.append(m)
+
+    t0 = time.perf_counter()
+    losses = train_loop(cfg, steps=c["steps"], batch=c["batch"],
+                        seq=c["seq"], ckpt_dir=None, mesh=mesh, lr=c["lr"],
+                        log_every=100, on_step=on_step)[2]
+    loop_s = time.perf_counter() - t0
+    if len(losses) != c["steps"] or not all(
+            m_.isfinite(m["loss"]) and m_.isfinite(m["grad_norm"])
+            for m in metrics):
+        raise AssertionError(f"mesh train bf16: losses {losses}")
+    timed = [b - a for a, b in zip(marks[c["warmup"]:],
+                                   marks[c["warmup"] + 1:])]
+    step_ms = sum(timed) / len(timed) * 1e3
+    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+               batch=c["batch"], seq=c["seq"], steps=c["steps"],
+               loop_s=loop_s, ms_per_step=step_ms,
+               step_ms=[x * 1e3 for x in timed],
+               tokens_per_s=c["batch"] * c["seq"] / step_ms * 1e3,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=losses, allocated_before_gb=before,
+               allocated_after_gb=release())
+    if single is not None:
+        rec.update(single_ms_per_step=single["ms_per_step"],
+                   single_peak_memory_gb=single["peak_memory_gb"],
+                   mesh_overhead=step_ms / single["ms_per_step"] - 1,
+                   single_losses=single["losses"])
+    return rec
+
+
+def mesh_serve(mesh, dev, single=None) -> tuple[dict, dict]:
+    """Phase (c): qwen3-14b at full width and depth in bf16 through the
+    mesh's prefill and decode steps (LM_BATCH x LM_PROMPT, LM_TOKENS greedy
+    steps, the last LM_PROFILED_STEPS traced), every decode attention the
+    kernel's log-sum-exp output and its merge: decode_attn must launch once
+    a layer a step and no other kernel at all.  Beside ``lm_serve``'s
+    record of the same run where given.  Returns the record and layer 0's
+    live local cache."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.sharding import local
+    from repro_torch.train import serve
+    cfg = get_config(LM_ARCH)
+    b, s, n = LM_BATCH, LM_PROMPT, LM_TOKENS
+    max_seq = s + n + 1
+    before = release()
+    torch.cuda.reset_peak_memory_stats()
+    rules = serve.serve_rules(mesh)
+    params = serve.init_serve_params(cfg, rules, 0)
+    cache = serve.place_cache(cfg, rules, b, max_seq)
+    prefill = serve.make_prefill_step(cfg, b, max_seq, mesh=mesh)
+    decode = serve.make_decode_step(cfg, b, max_seq, mesh=mesh)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s))).to(dev)
+    prefill(params, cache, prompts)           # warm-up; refilled below
+    torch.cuda.synchronize()
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cache, prompts)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    gen, lengths = [torch.argmax(logits.to_local(), -1)[:, None]], []
+
+    def step():
+        lengths.append(min(cache["pos"] + 1, max_seq))
+        out, _ = decode(params, cache, gen[-1])
+        gen.append(torch.argmax(out.to_local(), -1)[:, None])
+        return out
+
+    timed = n - LM_PROFILED_STEPS
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    events, wall_us, logits = trace_calls(step, LM_PROFILED_STEPS)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    expect = {name: 0 for name in wrappers}
+    expect["decode_attn"] = n * cfg.n_layers
+    if launches != expect:
+        raise AssertionError(f"mesh LM path launched {launches}, expected "
+                             f"{expect}")
+    full = logits.full_tensor()
+    if not bool(torch.isfinite(full).all()) or full.shape != (
+            b, cfg.padded_vocab):
+        raise AssertionError(f"mesh LM logits {tuple(full.shape)} not "
+                             f"finite")
+    attn_us = [us for name, us in events if "decode_attn_" in name]
+    kpl = wrappers["decode_attn"].kernels_per_launch
+    busy_us = sum(us for _, us in events)
+    step_ms = decode_s * 1e3 / timed
+    rec = dict(phase="c", arch=cfg.name, n_layers=cfg.n_layers,
+               dtype=cfg.dtype, batch=b, prompt=s, decode_steps=n,
+               prefill_ms=prefill_ms, decode_ms_per_step=step_ms,
+               tokens_per_s=b / step_ms * 1e3, launches=launches,
+               profiled_steps=LM_PROFILED_STEPS,
+               device_busy_share=busy_us / wall_us,
+               device_idle_share=1 - busy_us / wall_us,
+               decode_attn_in_path_ms=(sum(attn_us) / len(attn_us) * kpl
+                                       / 1e3) if attn_us else None,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               allocated_before_gb=before,
+               first_tokens=torch.cat(gen, 1)[0, :8].tolist())
+    if single is not None:
+        rec.update(single_prefill_ms=single["prefill_ms"],
+                   single_decode_ms_per_step=single["decode_ms_per_step"],
+                   single_first_tokens=single["first_tokens"])
+    blk = cache["stacks"][0]["0_attn"]
+    live = dict(k=local(blk["k"])[0].clone(), v=local(blk["v"])[0].clone(),
+                pos=cache["pos"], lengths=lengths, cfg=cfg,
+                item=local(blk["k"]).element_size(), launches=n * cfg.n_layers,
+                in_path_ms=rec["decode_attn_in_path_ms"])
+    del params, cache
+    torch.cuda.empty_cache()
+    return rec, live
+
+
+def decode_attn_lse_case(live, dev) -> dict:
+    """The log-sum-exp output of flash-decode on layer 0's live local
+    cache of the mesh serve (bf16 q as the path launches it) against its
+    plain version: output at rtol 2e-2 and an atol of 2e-2 x the plain
+    output's largest magnitude, lse at rtol 1e-5 and atol 1e-4; timed as
+    ``decode_attn_case`` times it."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn.decode_attn import decode_attn
+    from repro_torch.kernels.decode_attn.ops import (flash_decode,
+                                                     flash_decode_ref)
+    cfg = live["cfg"]
+    ck, cv = live["k"], live["v"]
+    b, k_, g, hd = (LM_BATCH, cfg.n_kv_heads, cfg.q_groups,
+                    cfg.resolved_head_dim)
+    s = ck.shape[1]
+    q = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (b, 1, k_, g, hd)).astype(np.float32)).to(dev, ck.dtype)
+    lens = torch.full((b,), live["pos"], dtype=torch.int32, device=dev)
+    before = decode_attn.launches
+    out, lse = flash_decode(q, ck, cv, lens, return_lse=True)
+    e_out, e_lse = flash_decode_ref(q, ck, cv, lens, return_lse=True)
+    torch.cuda.synchronize()
+    decode_attn.launches = before
+    err = float((out - e_out).abs().max())
+    lse_err = float((lse - e_lse).abs().max())
+    plain_max = float(e_out.abs().max())
+    if out.dtype != torch.float32 or not torch.allclose(
+            out, e_out, rtol=DECODE_BF16_REL,
+            atol=DECODE_BF16_REL * plain_max) or not torch.allclose(
+            lse, e_lse, rtol=1e-5, atol=1e-4):
+        raise AssertionError(f"decode_attn lse: out err {err}, lse err "
+                             f"{lse_err}")
+    qh = q[:, 0].reshape(b, k_ * g, 1, hd)
+    kh, vh = (t.transpose(1, 2).contiguous() for t in (ck, cv))
+    mask = (torch.arange(s, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+    slots = float(live["pos"]) * b * k_
+    n_bytes = (2 * slots * hd * 2 + b * k_ * g * hd * (2 + 4)
+               + b * k_ * g * 4 + 4 * b)
+    bound, by = bound_ms(n_bytes, 4.0 * slots * g * hd, PEAK_BF16_OPS_S)
+    call = lambda: flash_decode(q, ck, cv, lens, return_lse=True)  # noqa
+    rec = dict(kernel="decode_attn", shape="mesh live cache, layer 0, lse "
+               "output", on_path=True, B=b, S=s, K=k_, G=g, hd=hd,
+               q_dtype=str(q.dtype), cache_dtype=str(ck.dtype),
+               lengths=[live["pos"]] * 2, max_abs_err=err,
+               lse_max_abs_err=lse_err, plain_max_abs=plain_max,
+               device_ms=kernel_device_ms(call, "decode_attn_",
+                                          decode_attn.kernels_per_launch),
+               event_ms=time_ms(call, 20),
+               plain_ms=time_ms(lambda: flash_decode_ref(
+                   q, ck, cv, lens, return_lse=True), 5, warmup=1),
+               library="F.scaled_dot_product_attention(enable_gqa=True)",
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                   qh, kh, vh, attn_mask=mask, enable_gqa=True), 20),
+               bound_ms=bound, bound_by=by)
+    decode_attn.launches = before
+    rec["roofline_share"] = bound / (rec["device_ms"] or rec["event_ms"])
+    print(f"kernel {json.dumps(rec)}")
+    return rec
+
+
+def mesh_attn_run(live, case) -> dict:
+    """decode_attn's numbers over the mesh serve's launches, as
+    ``decode_attn_line`` sums them."""
+    cfg = live["cfg"]
+    n = live["launches"]
+    item = live["item"]
+    slots = [float(ln) * LM_BATCH * cfg.n_kv_heads for ln in live["lengths"]]
+    hd, g = cfg.resolved_head_dim, cfg.q_groups
+    per = LM_BATCH * cfg.n_kv_heads * g
+    bound = sum(bound_ms(2 * sl * hd * item + per * hd * (item + 4)
+                         + per * 4 + 4 * LM_BATCH, 4.0 * sl * g * hd,
+                         PEAK_BF16_OPS_S)[0]
+                for sl in slots) * cfg.n_layers
+    per_launch = case["device_ms"] or case["event_ms"]
+    return dict(launches=n, ms=n * per_launch, plain_ms=n * case["plain_ms"],
+                bound_ms=bound, library_ms=n * case["library_ms"],
+                in_path_ms=n * (live["in_path_ms"] or per_launch),
+                max_abs_err=case["max_abs_err"])
+
+
+def mesh_phase(dev, card: str, train_single=None,
+               serve_single=None) -> tuple[dict, dict]:
+    """The mesh on torch.distributed: an in-process NCCL group of one rank,
+    a (1,1,1) ("pod", "data", "model") mesh; (a) float32 checks of both
+    mesh configs, (b) bf16 training through train_loop(mesh=), (c) the
+    full-depth bf16 serve through the mesh's steps, and the kernel's
+    log-sum-exp output at the live shape.  Returns the summary and
+    decode_attn's numbers over the mesh serve."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(MESH_SHAPE, MESH_AXES)
+        checks = [mesh_check_fp32(arch, mesh, dev) for arch in MESH_ARCHS]
+        for rec in checks:
+            print(f"mesh_check {json.dumps(dict(phase='a', **rec))}")
+        train = mesh_train_bf16(mesh, dev, train_single)
+        print(f"mesh_train {json.dumps(dict(phase='b', **train))}")
+        srv, live = mesh_serve(mesh, dev, serve_single)
+        print(f"mesh_serve {json.dumps(srv)}")
+        case = decode_attn_lse_case(live, dev)
+        run = mesh_attn_run(live, case)
+        del live
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    summary = dict(seconds=time.perf_counter() - t0, world=1,
+                   mesh=dict(zip(MESH_AXES, MESH_SHAPE)),
+                   peak_memory_gb=max(r["peak_memory_gb"] for r in
+                                      (*checks, train, srv)),
+                   decode_attn_launches=run["launches"], card=card)
+    print(f"mesh {json.dumps(summary)}")
+    if summary["seconds"] > MESH_PHASE_LIMIT_S:
+        print(f"mesh: the phase took {summary['seconds']:.1f} s, more than "
+              f"its {MESH_PHASE_LIMIT_S} s budget", file=sys.stderr)
+    return dict(checks=checks, train=train, serve=srv, lse_case=case,
+                **summary), run
+
+
+def _multi_card_rank(rank, world, port, out_dir):
+    """One NCCL rank of ``mesh_multi_card``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((world // 2, 2), ("data", "model"))
+        checks = [mesh_check_fp32(arch, mesh, "cuda", strict=False)
+                  for arch in MESH_ARCHS]
+        train = mesh_train_bf16(mesh, "cuda", n_layers=MULTI_CARD_LAYERS)
+        if rank == 0:
+            rec = dict(world=world, mesh=[world // 2, 2], checks=checks,
+                       train=train, card=card_line())
+            (Path(out_dir) / "mesh_multi_card.json").write_text(
+                json.dumps(rec, indent=1))
+            print(f"mesh_multi_card {json.dumps(rec)}")
+    finally:
+        dist.destroy_process_group()
+
+
+# qwen3-14b layers of the multi-card bf16 run: training state is 12 bytes a
+# parameter; on a (2, 2) mesh every large leaf is split 4 ways, so 40
+# layers (14.77 B parameters, 177 GB of state) hold 44 GB a card, plus one
+# layer's gathered params and the local rows' activations and logits
+MULTI_CARD_LAYERS = 40
+MULTI_CARD_TOL = 1e-5
+
+
+def mesh_multi_card(world: int) -> None:
+    """The mesh on ``world`` cards, one spawned NCCL rank a card, a
+    (world // 2, 2) ("data", "model") mesh: phase (a) of the mesh phase,
+    then MULTI_CARD_LAYERS of qwen3-14b through train_loop(mesh=).  Not
+    called by main(); run as
+    ``python3 -c "import chip_smoke as c; c.mesh_multi_card(4)"``.  Writes
+    ``chiprun_out/mesh_multi_card.json``."""
+    import torch
+    import torch.multiprocessing as mp
+    if torch.cuda.device_count() < world:
+        raise RuntimeError(f"{world} ranks need {world} cards, the machine "
+                           f"has {torch.cuda.device_count()}")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import backend
+    backend.build()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    mp.start_processes(_multi_card_rank, args=(world, free_port(),
+                                               str(out_dir)),
+                       nprocs=world, join=True, start_method="spawn")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2454,6 +2950,13 @@ def main() -> int:
     (out_dir / "chip_smoke_train.json").write_text(json.dumps(train,
                                                               indent=1))
 
+    # the mesh on torch.distributed: one NCCL rank, a (1,1,1) mesh; (a)
+    # float32 checks, (b) bf16 training, (c) the full-depth bf16 serve with
+    # decode_attn's log-sum-exp output on the seq-sharded cache
+    torch.cuda.empty_cache()
+    mesh, mesh_run = mesh_phase(dev, card, train["bf16"], serve)
+    (out_dir / "chip_smoke_mesh.json").write_text(json.dumps(mesh, indent=1))
+
     source = {"qgemm": "src/repro_torch/csrc/qgemm.cu",
               "dwconv3x3_bands": "src/repro_torch/csrc/dwconv.cu",
               "dwconv3x3": "src/repro_torch/csrc/dwconv.cu"}
@@ -2498,7 +3001,8 @@ def main() -> int:
                                       for r in rows) else "events",
             launches_by_path={p["mode"]: p["launches"][name] for p in paths},
             serving_launches=serving["launches"][name]))
-    line.append(decode_attn_line(serve, live, attn_recs, fam_totals))
+    line.append(decode_attn_line(serve, live, attn_recs,
+                                 {**fam_totals, "mesh_decode": mesh_run}))
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,13 @@ returns, so an async save may run beside steps that update the state in
 place.  bfloat16 leaves are written as the reference writes them (2-byte
 ``|V2`` records, ``"bfloat16"`` in the manifest) and restored by the
 manifest's dtype, bit for bit; the reference's own restore returns those
-records as raw bytes.  The reference's restore onto another mesh
-(``shardings``) waits for the mesh slice.
+records as raw bytes.
+
+On a mesh the leaves are DTensors: every rank gathers each leaf whole and
+rank 0 writes it, so the files are the ones a single-device run writes
+(``n_processes`` 1).  ``restore_checkpoint(..., shardings=)`` places each
+leaf on a mesh, which need not be the one it was saved from: this is how a
+run restarts on another mesh (elastic rescale).
 """
 from __future__ import annotations
 
@@ -27,9 +32,11 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.executor import resolve_device
 from ..nn.layers import unflatten
+from ..parallel import sharding as sh
 
 _SEP = "/"
 _BF16 = "bfloat16"
@@ -52,8 +59,12 @@ def _flatten(tree, prefix: str = "") -> dict:
 
 
 def _to_host(leaf: torch.Tensor) -> np.ndarray:
-    """One host copy of a tensor as numpy (bfloat16 as 2-byte records)."""
-    t = leaf.detach().to("cpu", copy=True)
+    """One host copy of a tensor as numpy (bfloat16 as 2-byte records); a
+    DTensor's whole tensor (a collective: every rank calls it)."""
+    t = leaf.detach()
+    if sh.is_dtensor(t):
+        t = t.full_tensor()
+    t = t.to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
     return t.numpy()
@@ -63,14 +74,24 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *, process_index: int = 0,
                     n_processes: int = 1, blocking: bool = True):
     """Atomically persist a tree of tensors.  Returns a
     join()able thread when ``blocking=False`` (the files are written off the
-    caller's thread; the leaves are on the host before it returns)."""
+    caller's thread; the leaves are on the host before it returns).
+
+    A tree of DTensors is saved by every rank of their mesh together: each
+    gathers the whole leaves and rank 0 writes them; the others return
+    None, after the files are in place when ``blocking``."""
+    flat = _flatten(tree)
+    on_mesh = any(sh.is_dtensor(v) for v in flat.values())
     arrays, meta = {}, {"step": step, "n_processes": n_processes,
                         "entries": {}}
-    for key, val in _flatten(tree).items():
+    for key, val in flat.items():
         arr = _to_host(val)
         arrays[key] = arr
         dtype = _BF16 if val.dtype == torch.bfloat16 else str(arr.dtype)
         meta["entries"][key] = {"shape": list(arr.shape), "dtype": dtype}
+    if on_mesh and dist.get_rank() != 0:
+        if blocking:
+            dist.barrier()
+        return None
 
     def _write():
         tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
@@ -93,6 +114,8 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *, process_index: int = 0,
 
     if blocking:
         _write()
+        if on_mesh:
+            dist.barrier()
         return None
     t = threading.Thread(target=_write, daemon=True)
     t.start()
@@ -120,12 +143,28 @@ def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, template, *, device=None):
+def restore_checkpoint(ckpt_dir: str, step: int, template, *, device=None,
+                       shardings=None):
     """Restore into the structure of ``template``: each leaf a tensor of
     the manifest's dtype on ``device`` (CUDA unless the caller asks for the
     CPU), where the template's tensors must lie.  Raises if an entry is
-    missing or its shape differs from the template's."""
-    dev = resolve_device(device)
+    missing or its shape differs from the template's.
+
+    With ``shardings`` (a tree like ``template`` of
+    ``parallel.sharding.Sharding``, e.g. ``trainer.state_shardings`` of
+    ``abstract_train_state``), each leaf is placed with
+    ``distribute_tensor`` on its sharding's mesh, on that mesh's device; a
+    0-d leaf stays a plain tensor there (the optimizer step).  The
+    template's leaves then give the structure and shapes only."""
+    if shardings is not None:
+        if device is not None:
+            raise ValueError("pass shardings or device, not both")
+        flat_sh = _flatten(shardings)
+        mesh = next(s.mesh for s in flat_sh.values() if s is not None)
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if mesh.device_type == "cuda" else torch.device("cpu"))
+    else:
+        dev = resolve_device(device)
     final = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(final, "manifest.json")) as f:
         meta = json.load(f)
@@ -143,12 +182,15 @@ def restore_checkpoint(ckpt_dir: str, step: int, template, *, device=None):
     for key, tmpl in _flatten(template).items():
         if key not in flat:
             raise KeyError(f"checkpoint missing entry {key!r}")
-        if tmpl.device != dev:
+        if shardings is None and tmpl.device != dev:
             raise ValueError(f"{key}: template on {tmpl.device}, restoring "
                              f"to {dev}")
         arr = flat[key]
         if tuple(arr.shape) != tuple(tmpl.shape):
             raise ValueError(f"{key}: shape {arr.shape} != template "
                              f"{tuple(tmpl.shape)}")
-        out.append(_tensor(arr, meta["entries"][key]["dtype"]).to(dev))
+        t = _tensor(arr, meta["entries"][key]["dtype"]).to(dev)
+        if shardings is not None and t.dim() > 0:
+            t = sh.shard_tensor(t, flat_sh[key])
+        out.append(t)
     return unflatten(template, out)

@@ -54,6 +54,14 @@
 // Contract: lengths[b] in [1, S].  The kernel clamps it to [0, S]; at 0 it
 // writes zeros (the TPU kernel and its reference disagree there: both
 // average v over all slots, padded or not).
+//
+// Log-sum-exp output (optional, a null `lse` leaves it off): the merge
+// kernel writes the output in float32 instead of q's dtype, and each
+// (b, kv head, query row)'s log-sum-exp of its logits in float32.  A rank
+// that holds one slice of a cache split along S attends its slice with
+// its own lengths (0 where it holds no valid slot: output 0, lse -inf), and
+// the ranks' outputs are merged by exp(lse - max lse) weights
+// (models/lm.py); a bf16 output would round before that merge.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -522,9 +530,14 @@ decode_attn_split_simt(Args a) {
 // is empty and skipped.  Each partial's weight exp(m - max m) / sum l is
 // computed once per query row into shared memory (n_split * G floats);
 // then every output element sums its partials, four loads in flight.
+// With `lse` (the caller then passes QT = float), it also writes each query
+// row's log-sum-exp, max m + log(sum l), for a merge across ranks that
+// hold other slots of the same cache; a row with no valid slot gets output
+// 0 and lse -inf.
 template <typename QT>
 __global__ void __launch_bounds__(THREADS)
-decode_attn_merge_kernel(Args a, QT* __restrict__ out) {
+decode_attn_merge_kernel(Args a, QT* __restrict__ out,
+                         float* __restrict__ lse) {
   extern __shared__ float wgt[];   // [n_split][G]
   const int bk = blockIdx.x;
   const int b = bk / a.K;
@@ -543,6 +556,9 @@ decode_attn_merge_kernel(Args a, QT* __restrict__ out) {
     }
     const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
     for (int j = 0; j < used; ++j) wgt[j * G + g] *= inv;
+    if (lse != nullptr)
+      lse[static_cast<long long>(bk) * G + g] =
+          lsum > 0.f ? mx + logf(lsum) : neg_inf();
   }
   __syncthreads();
   const float* acc0 = a.ws_acc + p0 * G * hd;
@@ -619,7 +635,8 @@ cudaError_t split_simt(dim3 grid, const Args& a, cudaStream_t st) {
 
 // q: (B, K, G, hd) contiguous; k, v: element (b, kh, s, e) at
 // b*kb + kh*kk + s*ks + e (unit stride over hd, every stride a multiple of
-// 16 bytes); lengths: (B,) int32; out: (B, K, G, hd) in q's dtype; ws:
+// 16 bytes); lengths: (B,) int32; out: (B, K, G, hd) in q's dtype, or in
+// float32 when lse is not null; lse: null, or (B, K, G) float32; ws:
 // float32 workspace of B*K*n_split*G*(hd + 2) elements.  n_split * chunk
 // >= S, chunk > 0, n_split * G <= 12288 (the merge's shared memory; the
 // host's schedule gives n_split <= 2 x the SM count).  Requires hd in {8, 16, 32, 64, 128, 256} and G <= 16
@@ -632,7 +649,7 @@ extern "C" int decode_attn_launch(const void* q, const void* k,
                                   long long kk, long long vb, long long vs,
                                   long long vk, int q_bf16, int kv_bf16,
                                   float scale, int n_split, int chunk,
-                                  void* stream) {
+                                  void* lse, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const long long parts = static_cast<long long>(B) * K * n_split * G;
   float* w = static_cast<float*>(ws);
@@ -651,12 +668,12 @@ extern "C" int decode_attn_launch(const void* q, const void* k,
     e = split_simt<float, float>(grid, a, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int merge_smem = n_split * G * static_cast<int>(sizeof(float));
-  if (q_bf16)
+  if (q_bf16 && lse == nullptr)
     decode_attn_merge_kernel<bf16><<<B * K, THREADS, merge_smem, st>>>(
-        a, static_cast<bf16*>(out));
+        a, static_cast<bf16*>(out), nullptr);
   else
     decode_attn_merge_kernel<float><<<B * K, THREADS, merge_smem, st>>>(
-        a, static_cast<float*>(out));
+        a, static_cast<float*>(out), static_cast<float*>(lse));
   return static_cast<int>(cudaGetLastError());
 }
 

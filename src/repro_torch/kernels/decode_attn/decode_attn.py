@@ -65,7 +65,7 @@ def _entry():
     fn = backend.library("decode_attn").decode_attn_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
-                   i, i, ctypes.c_float, i, i, p]
+                   i, i, ctypes.c_float, i, i, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -107,15 +107,23 @@ def _aligned(t) -> bool:
             and all(s % per == 0 for s in t.stride()[:3]))
 
 
-def decode_attn(q, k, v, lengths, *, block_s: int = 512):
+def decode_attn(q, k, v, lengths, *, block_s: int = 512,
+                return_lse: bool = False):
     """q: (B, K, G, hd); k, v: (B, K, S, hd); lengths: (B,) int32 valid
     cache lengths.  Returns (B, K, G, hd) in q's dtype.
+
+    With ``return_lse``: (output (B, K, G, hd) in float32, log-sum-exp of
+    each query row's logits (B, K, G) in float32), for a merge with other
+    slices of the same cache; a row of length 0 gives output 0 and lse
+    -inf.
 
     ``block_s`` is the reference kernel's cache tile; it is validated for
     the contract, but the CUDA kernel tiles S its own way and S need not be
     a multiple of it."""
     _check_args(q, k, v, lengths, block_s)
     if q.device.type == "cpu":
+        if return_lse:
+            return decode_attn_ref(q, k, v, lengths, return_lse=True)
         return decode_attn_ref(q, k, v, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn runs on cuda or cpu, not {q.device}")
@@ -126,10 +134,13 @@ def decode_attn(q, k, v, lengths, *, block_s: int = 512):
     k = k if _aligned(k) else k.contiguous()
     v = v if _aligned(v) else v.contiguous()
     q, lengths = q.contiguous(), lengths.contiguous()
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape, dtype=torch.float32 if return_lse else
+                      q.dtype, device=q.device)
+    lse = torch.empty((b, kh, g), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     s = k.shape[2]
     if b * kh == 0 or g == 0:
-        return out
+        return (out, lse) if return_lse else out
     n_split, chunk = decode_schedule(s, b * kh, backend.sm_count(q.device))
     ws = torch.empty(b * kh * n_split * g * (hd + 2), dtype=torch.float32,
                      device=q.device)
@@ -140,11 +151,12 @@ def decode_attn(q, k, v, lengths, *, block_s: int = 512):
                       v.stride(0), v.stride(2), v.stride(1),
                       int(q.dtype == torch.bfloat16),
                       int(k.dtype == torch.bfloat16),
-                      _scale(hd), n_split, chunk, stream)
+                      _scale(hd), n_split, chunk,
+                      lse.data_ptr() if return_lse else None, stream)
     decode_attn.launches += 1
     backend.check("decode_attn", status, f"decode_attn B={b} K={kh} G={g} "
                   f"S={s} hd={hd}")
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attn.launches = 0

@@ -1,3 +1,6 @@
-"""Launchers, ported from ``repro/launch``: the single-device training loop
-(:mod:`.train`).  The mesh, dry-run and analysis launchers wait for the
-mesh slice."""
+"""Launchers, ported from ``repro/launch``: device meshes on
+``torch.distributed`` (:mod:`.mesh`) and the training loop on one device
+or a mesh (:mod:`.train`).  The dry-run and analysis launchers wait for
+the next slice (``ROADMAP.md`` queue 1)."""
+from .mesh import (MeshShape, data_axis_size, make_mesh,
+                   make_production_mesh)

@@ -1,8 +1,9 @@
 """Training launcher, ported from ``repro/launch/train.py``: real steps on
-one device with checkpointing, restart, data prefetch, AdamW and optional
-gradient compression.  The reference's ``mesh=`` is ``device=`` here (CUDA
-unless the caller asks for the CPU); the mesh launchers wait for the mesh
-slice.
+one device (``device=``, CUDA unless the caller asks for the CPU) or on a
+mesh (``mesh=``, a ``DeviceMesh`` from ``launch.mesh.make_mesh``) with
+checkpointing, restart, data prefetch, AdamW and optional gradient
+compression.  On a mesh every rank runs the loop on the same global
+batches; rank 0 prints.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b-smoke \
       --steps 50 --batch 8 --seq 64 --ckpt-dir ckpt --device cpu
@@ -13,17 +14,21 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from ..ckpt.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..configs import get_config
 from ..core.executor import resolve_device
 from ..data.pipeline import Prefetcher, SyntheticLM
 from ..train.optimizer import OptConfig
-from ..train.trainer import TrainOptions, init_train_state, make_train_step
+from ..train.trainer import (TrainOptions, abstract_train_state,
+                             init_train_state, make_train_step,
+                             state_shardings)
 
 
 def train_loop(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str | None,
-               ckpt_every: int = 50, device=None, lr: float = 3e-4,
+               ckpt_every: int = 50, device=None, mesh=None,
+               lr: float = 3e-4,
                compress_grads: bool = False, microbatches: int = 1,
                seed: int = 0, log_every: int = 10,
                schedule_steps: int | None = None, on_step=None):
@@ -31,25 +36,43 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str | None,
     ``ckpt_dir``) up to step ``steps``.  Returns (params, opt_state, losses
     of the steps run).  ``on_step(i, metrics)``, where given, is called
     after step ``i`` (1-based) with its loss, grad norm and lr as
-    floats."""
-    dev = resolve_device(device)
+    floats.  With ``mesh`` the step runs on it, sequence parallel, and a
+    checkpoint restores onto it, whatever mesh wrote it."""
     horizon = schedule_steps or steps
     opt_cfg = OptConfig(lr=lr, warmup_steps=max(horizon // 20, 5),
                         total_steps=horizon)
     options = TrainOptions(compress_grads=compress_grads,
-                           microbatches=microbatches)
-    step_fn = make_train_step(cfg, opt_cfg, options, device=dev)
-    params, opt_state = init_train_state(cfg, seed, device=dev)
+                           microbatches=microbatches,
+                           seq_parallel=mesh is not None)
+    if mesh is None:
+        dev = resolve_device(device)
+        step_fn = make_train_step(cfg, opt_cfg, options, device=dev)
+        params, opt_state = init_train_state(cfg, seed, device=dev)
+    else:
+        if device is not None:
+            raise ValueError("pass mesh or device, not both")
+        step_fn = make_train_step(cfg, opt_cfg, options, mesh=mesh)
+        params, opt_state = init_train_state(cfg, seed, mesh=mesh,
+                                             rules=step_fn.rules)
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
     start = 0
     if ckpt_dir:
         last = latest_step(ckpt_dir)
         if last is not None:
             template = {"params": params, "opt": opt_state}
-            restored = restore_checkpoint(ckpt_dir, last, template,
-                                          device=dev)
+            if mesh is None:
+                restored = restore_checkpoint(ckpt_dir, last, template,
+                                              device=dev)
+            else:
+                p_abs, o_abs = abstract_train_state(cfg, step_fn.rules)
+                restored = restore_checkpoint(
+                    ckpt_dir, last, template, shardings={
+                        "params": state_shardings(p_abs),
+                        "opt": state_shardings(o_abs)})
             params, opt_state = restored["params"], restored["opt"]
             start = last
-            print(f"[train] restored step {last} from {ckpt_dir}")
+            if rank0:
+                print(f"[train] restored step {last} from {ckpt_dir}")
 
     data = SyntheticLM(cfg.vocab_size, seed=seed)
 
@@ -79,7 +102,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str | None,
                 on_step(i + 1, {"loss": loss,
                                 "grad_norm": float(metrics["grad_norm"]),
                                 "lr": float(metrics["lr"])})
-            if (i + 1) % log_every == 0 or i == start:
+            if rank0 and ((i + 1) % log_every == 0 or i == start):
                 dt = (time.time() - t0) / max(i - start + 1, 1)
                 print(f"[train] step {i+1}/{steps} loss={loss:.4f} "
                       f"gnorm={float(metrics['grad_norm']):.3f} "

@@ -23,8 +23,19 @@ each layer of a stack runs under ``torch.utils.checkpoint`` as
 ``"dots"`` keeps its matmul outputs too.  The
 modality frontends of the audio and vlm families are stubs, as in the
 reference: inputs carry precomputed frame or patch embeddings.
-``abstract_model`` and ``model_spec_tree`` wait for the mesh slice, and
-``shard_act`` has no counterpart on one device.
+
+On a mesh (DTensor params under ``parallel.sharding.use_rules``; dense and
+moe, the other families raise and wait in ``ROADMAP.md`` queue 1) the
+residual between layers and the logits are DTensors placed by the rules at
+the reference's ``shard_act`` sites; each layer runs the single-device
+blocks on this rank's batch rows (``_mesh_layer``): the MLP and the MoE's
+shared experts split over the model axis where the rules split ``ff``
+(column-parallel in, row-parallel out, the paper's Alg. 2), the other
+params gathered whole, MoE dispatch over every rank's rows, and a decode
+attention on this rank's slice of a KV cache split along its slots,
+merged across the model axis by log-sum-exp (``_decode_kv_shard``).
+``abstract_model`` and ``model_spec_tree`` give the rules their shapes and
+names.
 
 Where the reference is pure and returns new caches, the port writes the
 caller's cache **in place** and returns it: attention caches by slice
@@ -53,10 +64,12 @@ from ..configs.base import ModelConfig
 from ..core.executor import resolve_device
 from ..kernels.decode_attn.ops import flash_decode
 from ..nn.attention import NEG_INF, gqa_attention, update_cache
-from ..nn.layers import (ParamDef, apply_norm, apply_rope, gelu, init_params,
-                         leaves, map_defs, norm_defs, rmsnorm, swish,
-                         torch_dtype)
-from ..nn.moe import moe_defs, moe_ffn
+from ..nn.layers import (ParamDef, abstract_params, apply_norm, apply_rope,
+                         gelu, init_params, leaves, map_defs, norm_defs,
+                         rmsnorm, spec_tree, swish, torch_dtype)
+from ..nn.moe import _shared_ffn, moe_defs, moe_ffn
+from ..parallel import sharding as sh
+from ..parallel.sharding import shard_act
 from ..nn.recurrent import (causal_conv1d, mlstm_defs, mlstm_sequence,
                             mlstm_step, rglru_block, rglru_defs, slstm_defs,
                             slstm_sequence, slstm_state)
@@ -186,18 +199,58 @@ def model_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def init_model(cfg: ModelConfig, seed: int = 0, *, device=None):
+def init_model(cfg: ModelConfig, seed: int = 0, *, device=None,
+               shardings=None):
     """Random params in ``cfg.dtype`` on ``device`` (CUDA unless the caller
     asks for the CPU), drawn from a ``torch.Generator`` seeded with
-    ``seed``."""
+    ``seed``.  With ``shardings`` (``parallel.sharding.param_shardings``),
+    each param is placed on its mesh as soon as it is drawn (the draws are
+    the single-device ones), so no rank holds more than one whole param."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return init_params(model_defs(cfg), gen, dtype=torch_dtype(cfg.dtype))
+    place = None
+    if shardings is not None:
+        order: list = []
+        map_defs(order.append, shardings)    # the order init_params draws
+        it = iter(order)
+        place = lambda t: sh.shard_tensor(t, next(it))  # noqa: E731
+    return init_params(model_defs(cfg), gen, dtype=torch_dtype(cfg.dtype),
+                       place=place)
+
+
+def abstract_model(cfg: ModelConfig):
+    """The params as meta-device tensors of ``cfg.dtype`` (no storage)."""
+    return abstract_params(model_defs(cfg), dtype=torch_dtype(cfg.dtype))
+
+
+def model_spec_tree(cfg: ModelConfig):
+    """The params' logical axis names, a tuple a leaf."""
+    return spec_tree(model_defs(cfg))
 
 
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MeshCtx:
+    """The layout of a forward on a mesh (``_mesh_forward``): its rules;
+    the batch rows this rank computes, ``rows`` of a global ``batch``
+    (placements of a (B, ...) activation split by rows); the gradient
+    placements of a gathered param (``Partial`` along the mesh dims whose
+    ranks compute other rows); and, for a KV cache split along its slots,
+    the model group, its size and this rank's index in it."""
+    rules: Any
+    mesh: Any
+    batch: int
+    rows: tuple
+    row_range: tuple[int, int]
+    grad: tuple
+    kv: tuple | None = None
+    # the model axis's mesh dim when the rules split the MLP's ff over it
+    # (``act_ff``: direct routing), else None
+    ff_dim: int | None = None
+
 
 @dataclasses.dataclass
 class Ctx:
@@ -209,6 +262,7 @@ class Ctx:
     causal: bool = True
     # decode: (B,) int32 lengths by valid-slot count, made once a step
     lengths: dict = dataclasses.field(default_factory=dict)
+    mesh: MeshCtx | None = None    # a mesh forward's layout
 
     def lengths_of(self, n: int) -> torch.Tensor:
         if n not in self.lengths:
@@ -235,6 +289,16 @@ def _project(x, w):
     return (x @ w.reshape(d, -1).to(x.dtype)).view(*x.shape[:2], *w.shape[1:])
 
 
+def _attn_act_names(mode: str):
+    """Sharding names for q (5D) and k, v (4D), as the reference's: q keeps
+    its seq dim sharded through the attention (sequence parallel), k and v
+    are replicated along the model axis; decode has one query, so q is
+    split by batch only and balance comes from the seq-sharded cache."""
+    if mode == "decode":
+        return ("batch", None, None, None, None), ("batch", None, None, None)
+    return ("batch", "seq", None, None, None), ("batch", None, None, None)
+
+
 def _project_qkv(p, xn, ctx: Ctx):
     """Returns q (B, S, K, G, hd); k, v (B, S, K, hd)."""
     cfg = ctx.cfg
@@ -250,14 +314,15 @@ def _project_qkv(p, xn, ctx: Ctx):
     if cfg.rope_theta > 0:
         q = apply_rope(q, ctx.positions, cfg.rope_theta)
         k = apply_rope(k, ctx.positions, cfg.rope_theta)
-    return q, k, v
+    qn, kn = _attn_act_names(ctx.mode)
+    return shard_act(q, qn), shard_act(k, kn), shard_act(v, kn)
 
 
 def _cross_attn(p, xn, ctx: Ctx, cache):
     """Cross-attention of xn against the encoder output: k and v are made
     from it (train, prefill; prefill stores them in ``cache``) or read
     from the cache (decode, through the kernel over all frames)."""
-    q = _project(xn, p["wq"])
+    q = shard_act(_project(xn, p["wq"]), _attn_act_names(ctx.mode)[0])
     if ctx.mode == "decode":
         ck, cv = cache["k"], cache["v"]
         return flash_decode(q, ck, cv, ctx.lengths_of(ck.shape[1]))
@@ -278,6 +343,13 @@ def _self_attn(p, xn, ctx: Ctx, cache, local_window: int):
     cfg = ctx.cfg
     s = xn.shape[1]
     q, k, v = _project_qkv(p, xn, ctx)
+    if ctx.mesh is not None and cache is not None:
+        if ctx.mode == "decode":
+            return _decode_kv_shard(q, k, v, cache, ctx)
+        _prefill_kv_shard(k, v, cache, ctx)
+        return gqa_attention(q, k, v, q_pos=ctx.positions,
+                             kv_pos=ctx.positions, causal=ctx.causal,
+                             chunk=cfg.attn_chunk)
     if ctx.mode == "decode":
         w = cache["k"].shape[1]
         slot = ctx.pos % w if local_window else min(ctx.pos, w - 1)
@@ -313,6 +385,63 @@ def _self_attn(p, xn, ctx: Ctx, cache, local_window: int):
     return out
 
 
+def _kv_slice(ctx: Ctx, w_loc: int) -> tuple[int, int]:
+    """(first slot of this rank's slice, slots of the whole cache) when
+    the model axis splits the cache's ``w_loc * n`` slots: rank r holds
+    [r * w_loc, (r + 1) * w_loc)."""
+    if ctx.mesh.kv is None:
+        return 0, w_loc
+    _, n, r = ctx.mesh.kv
+    return r * w_loc, w_loc * n
+
+
+def _prefill_kv_shard(k, v, cache, ctx: Ctx) -> None:
+    """Prefill's cache write on this rank's slice of the slots: slot j of
+    the whole cache holds position j + max(s - w, 0) while j < min(s, w),
+    as the single-device write leaves it; the rest is zero and marked
+    unwritten."""
+    ck, cv, kp = cache["k"], cache["v"], cache["kv_pos"]
+    s, w_loc = k.shape[1], ck.shape[1]
+    off, w = _kv_slice(ctx, w_loc)
+    n = min(max(min(s, w) - off, 0), w_loc)
+    src = off + max(s - w, 0)
+    ck[:, :n] = k[:, src:src + n]
+    cv[:, :n] = v[:, src:src + n]
+    kp[:n] = ctx.positions[0, src:src + n]
+    ck[:, n:].zero_()
+    cv[:, n:].zero_()
+    kp[n:].fill_(-1)
+
+
+def _decode_kv_shard(q, k, v, cache, ctx: Ctx):
+    """One decode attention against a cache whose slots the model axis
+    splits: the rank that holds the new token's slot writes it; each rank
+    attends its slice with its own valid length (0 where it holds none)
+    through the kernel's log-sum-exp output; the ranks merge by an
+    all-reduce MAX of the lse, then one SUM of exp(lse - max) * out beside
+    exp(lse - max)."""
+    ck, cv, kp = cache["k"], cache["v"], cache["kv_pos"]
+    w_loc = ck.shape[1]
+    off, w = _kv_slice(ctx, w_loc)
+    slot = min(ctx.pos, w - 1)
+    if off <= slot < off + w_loc:
+        update_cache(ck, cv, k, v, slot - off)
+        kp[slot - off:slot - off + 1].fill_(ctx.pos)
+    n_valid = min(max(min(ctx.pos + 1, w) - off, 0), w_loc)
+    out, lse = flash_decode(q, ck, cv, ctx.lengths_of(n_valid),
+                            return_lse=True)
+    if ctx.mesh.kv is not None:
+        import torch.distributed as dist
+        group = ctx.mesh.kv[0]
+        top = lse.clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        wgt = torch.exp(lse - top)[..., None]
+        acc = torch.cat([out * wgt, wgt], dim=-1)
+        dist.all_reduce(acc, group=group)
+        out = acc[..., :-1] / acc[..., -1:]
+    return out.to(q.dtype)
+
+
 def _apply_attn(p, x, ctx: Ctx, cache, *, local_window: int = 0,
                 cross: bool = False):
     """Self- or cross-attention sublayer.  Returns x + attention output."""
@@ -328,12 +457,23 @@ def _apply_attn(p, x, ctx: Ctx, cache, *, local_window: int = 0,
 def _apply_mlp(p, x, ctx: Ctx):
     cfg = ctx.cfg
     xn = apply_norm(x, p["ln"], cfg.norm, 1e-6)
+    split = ctx.mesh is not None and ctx.mesh.ff_dim is not None and \
+        p["wi"].shape[-1] != cfg.d_ff
+    if split:
+        # each model rank holds a slice of ff: xn's gradient is summed over
+        # them, the output projection's parts are summed below
+        xn = sh.grads_summed(xn, ctx.mesh.mesh, ctx.mesh.rows,
+                             ctx.mesh.ff_dim)
     h = xn @ p["wi"]
     if cfg.act == "swiglu":
         h = swish(xn @ p["wg"]) * h
     else:
         h = gelu(h)
-    return x + (h @ p["wo"]).to(x.dtype)
+    h = shard_act(h, ("batch", None, "act_ff"))
+    y = h @ p["wo"]
+    if split:
+        y = sh.summed(y, ctx.mesh.mesh, ctx.mesh.rows, ctx.mesh.ff_dim)
+    return x + y.to(x.dtype)
 
 
 def _store(cache, new: dict) -> None:
@@ -375,6 +515,37 @@ def _apply_mlstm(cell, xn, ctx: Ctx, cache):
     return (h * swish(z)) @ cell["w_down"]
 
 
+def _moe(p, xn, ctx: Ctx):
+    """``moe_ffn``; on a mesh over every rank's rows, gathered, since its
+    dispatch groups run over the global token order (a group may span two
+    ranks' rows, and a short batch shrinks the group), and this rank's
+    rows of the result."""
+    mc = ctx.mesh
+    if mc is None:
+        return moe_ffn(p, xn, ctx.cfg)
+    from torch.distributed.tensor import DTensor, Replicate
+    full = DTensor.from_local(xn, mc.mesh, mc.rows, run_check=False,
+                              shape=(mc.batch, *xn.shape[1:]),
+                              stride=_strides((mc.batch, *xn.shape[1:])))
+    full = sh.replicated(full, mc.grad)
+    cfg = ctx.cfg
+    split = cfg.n_shared_experts and mc.ff_dim is not None and \
+        p["shared_wi"].shape[-1] != cfg.moe_d_ff * cfg.n_shared_experts
+    if not split:
+        out = moe_ffn(p, full, cfg)
+    else:
+        # the shared experts split over the model axis as the MLP is; the
+        # routed experts on the gathered params
+        out = moe_ffn({k: v for k, v in p.items()
+                       if not k.startswith("shared_")}, full,
+                      dataclasses.replace(cfg, n_shared_experts=0))
+        whole = (Replicate(),) * mc.mesh.ndim
+        xs = sh.grads_summed(full, mc.mesh, whole, mc.ff_dim)
+        out = out + sh.summed(_shared_ffn(p, xs), mc.mesh, whole,
+                              mc.ff_dim)
+    return out[mc.row_range[0]:mc.row_range[1]]
+
+
 def apply_block(kind: str, p, x, ctx: Ctx, cache):
     """Returns x after the block; writes the block's cache in place."""
     cfg = ctx.cfg
@@ -392,7 +563,7 @@ def apply_block(kind: str, p, x, ctx: Ctx, cache):
     if kind == "moe":
         x = _apply_attn(p["attn"], x, ctx, cache)
         xn = apply_norm(x, p["moe_ln"], cfg.norm, 1e-6)
-        return x + moe_ffn(p["moe"], xn, cfg).to(x.dtype)
+        return x + _moe(p["moe"], xn, ctx).to(x.dtype)
     xn = apply_norm(x, p["ln"], cfg.norm, 1e-6)
     if kind == "rec":
         y, new = rglru_block(p["rec"], xn, cfg, cache=cache)
@@ -517,9 +688,18 @@ def _run_stacks(params, x, ctx: Ctx, cache, stacks):
     for si, (pattern, ng) in enumerate(stacks):
         stack_params = params["stacks"][si]
         stack_cache = None if cache is None else cache["stacks"][si]
+        # the residual between layers: under sequence parallelism sharded
+        # by (batch, seq); the ssm family shards channels instead
+        carry_seq = ctx.mode != "decode" and cfg.family != "ssm"
+        carry_names = ("batch", "seq" if carry_seq else None, "act_embed")
 
         def body(x, layer, stack_params=stack_params,
-                 stack_cache=stack_cache, pattern=pattern):
+                 stack_cache=stack_cache, pattern=pattern,
+                 carry_names=carry_names):
+            x = shard_act(x, carry_names)
+            if ctx.mesh is not None:
+                return _mesh_layer(x, layer, stack_params, stack_cache,
+                                   pattern, ctx)
             for i, kind in enumerate(pattern):
                 key = f"{i}_{kind}"
                 gp = map_defs(lambda t: t[layer], stack_params[key])
@@ -534,6 +714,152 @@ def _run_stacks(params, x, ctx: Ctx, cache, stacks):
             x = _remat(functools.partial(body, layer=layer), x, cfg) \
                 if remat else body(x, layer)
     return x
+
+
+def _strides(shape) -> tuple[int, ...]:
+    """Contiguous strides of ``shape``."""
+    out, n = [], 1
+    for d in reversed(shape):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
+
+
+def _from_rows(x, mc: MeshCtx):
+    """This rank's rows ``x`` of a (B, ...) activation as a DTensor."""
+    from torch.distributed.tensor import DTensor
+    shape = (mc.batch, *x.shape[1:])
+    return DTensor.from_local(x, mc.mesh, mc.rows, run_check=False,
+                              shape=shape, stride=_strides(shape))
+
+
+def _rows(x, mc: MeshCtx):
+    """This rank's rows of the activation DTensor ``x``, whole along every
+    other dim (an all-gather along the model axis where it is split)."""
+    return x.redistribute(mc.mesh, mc.rows).to_local()
+
+
+def _layer_param(t, layer: int, mc: MeshCtx, split: bool = False):
+    """Layer ``layer`` of a stacked param on this rank: gathered from its
+    shards (its gradient returns as ``mc.grad`` says), but with ``split``
+    left in its model-axis slice."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    place = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+             for p in t.placements]
+    sl = DTensor.from_local(t.to_local()[layer], t.device_mesh, place,
+                            run_check=False, shape=t.shape[1:],
+                            stride=_strides(t.shape[1:]))
+    if not split or mc.ff_dim is None:
+        return sh.replicated(sl, mc.grad)
+    want = [Replicate()] * len(place)
+    grad = list(mc.grad)
+    want[mc.ff_dim] = grad[mc.ff_dim] = place[mc.ff_dim]
+    return sl.redistribute(t.device_mesh, want).to_local(
+        grad_placements=grad)
+
+
+# the leaves a mesh layer keeps in their model-axis slice (ff over model):
+# the MLP's, and the MoE's shared experts'
+_FF_SPLIT = {"mlp": ("wi", "wg", "wo"),
+             "moe": ("shared_wi", "shared_wg", "shared_wo")}
+
+
+def _gather_block(tree: dict, layer: int, mc: MeshCtx, split=()) -> dict:
+    """A block's layer-``layer`` params on this rank (``_layer_param``);
+    the leaves ``_FF_SPLIT`` names stay in their model-axis slice."""
+    return {k: _gather_block(v, layer, mc, _FF_SPLIT.get(k, ()))
+            if isinstance(v, dict) else _layer_param(v, layer, mc, k in split)
+            for k, v in tree.items()}
+
+
+def _mesh_layer(x, layer: int, stack_params, stack_cache, pattern,
+                ctx: Ctx):
+    """One layer of a stack on a mesh: this rank's rows of ``x`` and the
+    layer's params (``_gather_block``), the pattern's blocks applied to
+    them with the single-device code (the cache through this rank's local
+    shards), and the rows back as a DTensor."""
+    mc = ctx.mesh
+    h = _rows(x, mc)
+    for i, kind in enumerate(pattern):
+        key = f"{i}_{kind}"
+        gp = _gather_block(stack_params[key], layer, mc)
+        bc = None if stack_cache is None else map_defs(
+            lambda t: sh.local(t)[layer], stack_cache[key])
+        h = apply_block(kind, gp, h, ctx, bc)
+    return _from_rows(h, mc)
+
+
+MESH_FAMILIES = ("dense", "moe")
+
+
+def _mesh_ctx(rules, cfg: ModelConfig, b: int, cache) -> MeshCtx:
+    from torch.distributed.tensor import Shard
+    if rules is None or rules.mesh is None:
+        raise ValueError("DTensor params need a mesh's rules "
+                         "(parallel.sharding.use_rules)")
+    if cfg.family not in MESH_FAMILIES:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family does not run "
+                         f"on a mesh yet (ROADMAP.md queue 1); the mesh "
+                         f"steps take {MESH_FAMILIES}")
+    mesh = rules.mesh
+    rows = sh.rows_placements(rules, (b, 1))
+    kv = None
+    if cache is not None:
+        ck = next(blk["k"] for stack in cache["stacks"]
+                  for blk in stack.values())
+        for d, p in enumerate(ck.placements):
+            if isinstance(p, Shard) and p.dim == 2:      # kv_seq
+                kv = (mesh.get_group(d), mesh.size(d),
+                      mesh.get_local_rank(d))
+    names = tuple(mesh.mesh_dim_names)
+    ff_dim = names.index("model") if rules.rules.get("act_ff") == "model" \
+        else None
+    return MeshCtx(rules=rules, mesh=mesh, batch=b, rows=rows,
+                   row_range=sh.row_range(b, mesh, rows),
+                   grad=sh.partial_over(rows), kv=kv, ff_dim=ff_dim)
+
+
+def _mesh_forward(params, inputs: dict, cfg: ModelConfig, mode: str,
+                  cache):
+    """``_forward`` over DTensor params on the rules' mesh: the embedding
+    and every layer on this rank's batch rows with gathered params (the
+    decode attention on this rank's slice of a split cache), the residual
+    between layers placed by the rules, the logits a DTensor."""
+    dt = torch_dtype(cfg.dtype)
+    dev = params["embed"].device
+    tokens = inputs["tokens"]
+    tokens = tokens.full_tensor() if sh.is_dtensor(tokens) else \
+        torch.as_tensor(tokens, device=dev)
+    b = tokens.shape[0]
+    mc = _mesh_ctx(sh.current_rules(), cfg, b, cache)
+    r0, r1 = mc.row_range
+    x = sh.replicated(params["embed"], mc.grad).to(dt)[
+        tokens[r0:r1].to(dev).long()]
+    pos0 = int(cache["pos"]) if mode == "decode" else 0
+    if mode == "decode":
+        positions = torch.full((r1 - r0, 1), pos0, dtype=torch.int32,
+                               device=dev)
+    else:
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=dev)[None].expand(r1 - r0, -1)
+    x = shard_act(_from_rows(x, mc), ("batch", "seq", "act_embed"))
+    ctx = Ctx(cfg=cfg, mode=mode, positions=positions, pos=pos0, mesh=mc)
+    x = _run_stacks(params, x, ctx, cache if mode != "train" else None,
+                    pattern_stacks(cfg))
+    if mode == "train":
+        x = shard_act(x, ("batch", None, "act_embed"))
+    x = apply_norm(_rows(x, mc), map_defs(
+        lambda t: sh.replicated(t, mc.grad), params["out_ln"]), cfg.norm,
+        1e-6)
+    head = (sh.replicated(params["embed"], mc.grad).T if cfg.tie_embeddings
+            else sh.replicated(params["lm_head"], mc.grad)).to(dt)
+    if mode == "train":
+        return shard_act(_from_rows(x @ head, mc), ("batch", None, "vocab"))
+    if mode == "prefill":
+        cache["pos"] = x.shape[1]
+        return _from_rows(x[:, -1, :] @ head, mc), cache
+    cache["pos"] = pos0 + 1
+    return _from_rows(x[:, 0, :] @ head, mc), cache
 
 
 def _frontend_input(inputs: dict, name: str, want: int, cfg, dev, dt):
@@ -571,6 +897,8 @@ def forward(params, inputs: dict, cfg: ModelConfig, mode: str = "train",
 
 
 def _forward(params, inputs: dict, cfg: ModelConfig, mode: str, cache):
+    if sh.is_dtensor(params["embed"]):
+        return _mesh_forward(params, inputs, cfg, mode, cache)
     stacks = pattern_stacks(cfg)
     dt = torch_dtype(cfg.dtype)
     dev = params["embed"].device
@@ -606,6 +934,7 @@ def _forward(params, inputs: dict, cfg: ModelConfig, mode: str, cache):
                                  device=dev)[None].expand(b, s_total)
     if cfg.rope_theta == 0:   # whisper: absolute sinusoidal positions
         x = x + _sinusoid(positions, d).to(dt)
+    x = shard_act(x, ("batch", "seq", "act_embed"))
 
     ctx = Ctx(cfg=cfg, mode=mode, positions=positions, pos=pos0,
               enc_out=enc_out)
@@ -616,7 +945,8 @@ def _forward(params, inputs: dict, cfg: ModelConfig, mode: str, cache):
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"]).to(dt)
     if mode == "train":
-        return x @ head
+        x = shard_act(x, ("batch", None, "act_embed"))
+        return shard_act(x @ head, ("batch", None, "vocab"))
     if mode == "prefill":
         cache["pos"] = x.shape[1]
         return x[:, -1, :] @ head, cache
@@ -635,8 +965,31 @@ def lm_loss(params, batch: dict, cfg: ModelConfig):
     whose ``[:, 1:]`` weighs each target; the sum is divided by
     ``max(mask.sum(), 1)``."""
     logits = forward(params, batch, cfg, mode="train")
+    tokens, mask = batch["tokens"], batch.get("loss_mask")
+    if not sh.is_dtensor(logits):
+        num, den = _nll_sums(logits, tokens, mask, cfg)
+        return num / torch.clamp(den, min=1.0)
+    # on a mesh: this rank's rows of the logits, whole along the vocab;
+    # the sums over every rank's rows
+    mc_rows = sh.rows_placements(sh.current_rules(), tuple(logits.shape))
+    mesh = logits.device_mesh
+    r0, r1 = sh.row_range(logits.shape[0], mesh, mc_rows)
+    lg = logits.redistribute(mesh, mc_rows).to_local()
+
+    def rows(t):
+        t = t.full_tensor() if sh.is_dtensor(t) else torch.as_tensor(t)
+        return t[r0:r1]
+
+    num, den = _nll_sums(lg, rows(tokens), None if mask is None
+                         else rows(mask), cfg)
+    tot = sh.sum_over(torch.stack([num, den]), mesh, mc_rows)
+    return tot[0] / torch.clamp(tot[1], min=1.0)
+
+
+def _nll_sums(logits, tokens, mask, cfg: ModelConfig):
+    """(sum of mask-weighted next-token NLL, sum of the mask weights)."""
     dev = logits.device
-    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    tokens = torch.as_tensor(tokens, device=dev).long()
     prefix = logits.shape[1] - tokens.shape[1]
     tgt = tokens[:, 1:]
     lg = logits[:, prefix:-1, :].float()
@@ -646,7 +999,6 @@ def lm_loss(params, batch: dict, cfg: ModelConfig):
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
     nll = logz - gold
-    mask = batch.get("loss_mask")
     mask = torch.ones_like(nll) if mask is None else torch.as_tensor(
         mask, device=dev)[:, 1:].float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum(), mask.sum()

@@ -2,9 +2,9 @@
 ``repro/nn/layers.py``.
 
 Models declare a nested dict (and list) of :class:`ParamDef`; the same tree
-drives initialization and the parameter count.  The reference's
-``abstract_params`` and ``spec_tree`` serve the mesh and the dry-run and wait
-for the mesh slice.  Norms, RoPE and activations compute in float32 and cast
+drives initialization, the parameter count, the meta-device stand-ins
+(:func:`abstract_params`) and the logical names the sharding rules read
+(:func:`spec_tree`).  Norms, RoPE and activations compute in float32 and cast
 back to the input's dtype, as the reference does.
 """
 from __future__ import annotations
@@ -85,14 +85,15 @@ def _std(d: ParamDef) -> float:
     return d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
 
 
-def init_params(defs, generator: torch.Generator, dtype=None):
+def init_params(defs, generator: torch.Generator, dtype=None, place=None):
     """Materialize a ParamDef tree into tensors on the generator's device:
     normal leaves are float32 draws from ``generator`` times their scale,
     cast to the leaf's dtype.  A stacked leaf (leading ``layers`` axis) is drawn one
     layer at a time, so no float32 temporary larger than one layer's slice
     exists (a full-depth qwen3-14b ``wi`` would need 14 GB).  The draws
     differ from ``jax.random``'s; parity tests carry weights across with
-    :func:`repro_torch.convert.convert_lm_params` instead."""
+    :func:`repro_torch.convert.convert_lm_params` instead.  ``place``, where
+    given, maps each leaf as soon as it is made (a mesh placement)."""
     device = generator.device
 
     def mk(d: ParamDef):
@@ -111,7 +112,20 @@ def init_params(defs, generator: torch.Generator, dtype=None):
                      .mul_(std))
         return out
 
-    return map_defs(mk, defs)
+    return map_defs(mk if place is None else lambda d: place(mk(d)), defs)
+
+
+def abstract_params(defs, dtype=None):
+    """The ParamDef tree as tensors on the meta device: shapes and dtypes,
+    no storage (the reference's ``ShapeDtypeStruct`` tree)."""
+    return map_defs(lambda d: torch.empty(
+        d.shape, dtype=torch_dtype(dtype) if dtype is not None else d.dtype,
+        device="meta"), defs)
+
+
+def spec_tree(defs):
+    """Tree of logical-name tuples (consumed by ``parallel.sharding``)."""
+    return map_defs(lambda d: tuple(d.names), defs)
 
 
 def param_count(defs) -> int:

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.sharding import shard_act
 from .layers import ParamDef, swish
 
 
@@ -107,7 +108,7 @@ def moe_ffn(p, x, cfg):
     if pad:
         xf = torch.cat([xf, xf.new_zeros((pad, d))], dim=0)
     ng = (t + pad) // gs
-    xt = xf.view(ng, gs, d)
+    xt = shard_act(xf.view(ng, gs, d), ("moe_groups", None, None))
     e = cfg.n_experts
     weights, idx, pos_tok, keep, cap = route(p, xt, cfg, t)
 
@@ -119,6 +120,7 @@ def moe_ffn(p, x, cfg):
         oh_e = _one_hot(idx, e, xt.dtype)
         oh_c = _one_hot(pos_tok, cap, xt.dtype) * keep[..., None]
         disp = torch.einsum("gske,gskc->gsec", oh_e, oh_c)
+        disp = shard_act(disp, ("moe_groups", None, "act_experts", None))
         ex_in = torch.einsum("gsec,gsd->gecd", disp, xt)
         ex_out = _expert_ffn(p, ex_in)
         comb = torch.einsum(
@@ -139,7 +141,9 @@ def moe_ffn(p, x, cfg):
                      tok.reshape(ng, gs * k))
         src = src.view(ng, e, cap + 1)[..., :cap].reshape(ng, e * cap)
         ex_in = torch.gather(xt, 1, src[..., None].expand(ng, e * cap, d))
-        ex_out = _expert_ffn(p, ex_in.view(ng, e, cap, d))
+        ex_in = shard_act(ex_in.view(ng, e, cap, d),
+                          ("moe_groups", "act_experts", None, None))
+        ex_out = _expert_ffn(p, ex_in)
         # combine: gather each token's k expert outputs from the buffer
         slot = idx * cap + torch.clamp(pos_tok, max=cap - 1)
         gathered = torch.gather(ex_out.reshape(ng, e * cap, d), 1,

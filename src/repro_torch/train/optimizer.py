@@ -14,6 +14,11 @@ The update is elementwise, so it walks each leaf in slices of
 ``UPDATE_SLICE`` elements: its float32 temporaries stay that small
 whatever the leaf (a full-width embedding is 778 M elements).  With
 ``in_place`` it writes the params and moments it was given.
+
+On a mesh the leaves are DTensors with one placement: the update runs on
+each rank's local shards, and the global norm and the compression scale
+count each element once (a sum or max over the ranks that shard a leaf,
+not over those that hold copies of it).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import math
 import torch
 
 from ..nn.layers import leaves, map_defs, unflatten
+from ..parallel import sharding as sh
 
 UPDATE_SLICE = 1 << 25          # elements per slice of a leaf's update
 
@@ -52,20 +58,33 @@ def schedule(step, cfg: OptConfig):
 
 
 def init_opt_state(params) -> dict:
-    """Zero float32 moments shaped like ``params`` and a zero int32 step,
-    on the params' device."""
+    """Zero float32 moments shaped like ``params`` (placed like them on a
+    mesh) and a zero int32 step, on the params' device."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return sh.like(p, lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                                device=t.device))
     dev = leaves(params)[0].device
     return {"m": map_defs(zeros, params), "v": map_defs(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _leaf_reduce(g, fn, op):
+    """``fn`` of a leaf's local shard, reduced by ``op`` ("sum" | "max")
+    over the ranks that shard it on a mesh."""
+    out = fn(sh.local(g))
+    if sh.is_dtensor(g):
+        import torch.distributed as dist
+        red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+        out = sh.reduce_over(out.clone(), g.device_mesh, g.placements, red)
+    return out
+
+
 def global_norm(tree):
     """sqrt of the sum over leaves (in ``leaves`` order) of each leaf's
     float32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves(tree)))
+    return torch.sqrt(sum(
+        _leaf_reduce(g, lambda t: torch.sum(torch.square(t.float())), "sum")
+        for g in leaves(tree)))
 
 
 def _slices(*ts):
@@ -91,12 +110,18 @@ def adamw_update(grads, opt_state, params, cfg: OptConfig, *,
         b2c = 1 - torch.pow(cfg.b2, stepf)
 
         def upd(g, m, v, p):
+            if sh.is_dtensor(p) and not (
+                    g.placements == m.placements == v.placements ==
+                    p.placements):
+                raise ValueError(f"a leaf's grad and moments are not placed "
+                                 f"as its param ({p.placements})")
             if in_place:
                 out = p, m, v
             else:
                 out = (torch.empty_like(p), torch.empty_like(m),
                        torch.empty_like(v))
-            for gs, ms, vs, ps, po, mo, vo in _slices(g, m, v, p, *out):
+            for gs, ms, vs, ps, po, mo, vo in _slices(
+                    *(sh.local(t) for t in (g, m, v, p, *out))):
                 gs = gs.float() * scale
                 mn = cfg.b1 * ms + (1 - cfg.b1) * gs
                 vn = cfg.b2 * vs + (1 - cfg.b2) * gs * gs
@@ -124,15 +149,18 @@ def adamw_update(grads, opt_state, params, cfg: OptConfig, *,
 
 def fake_quant_grads(grads, bits: int = 8):
     """Lossy int-N gradient compression numerics (per-tensor symmetric
-    scale, round half to even as ``jnp.round``).  The reference pairs it
+    scale from the whole tensor's largest magnitude, round half to even as
+    ``jnp.round``).  The reference pairs it
     with a compressed cross-pod reducer on a mesh; here it reproduces the
     numerics, so convergence under compression is testable on one
     device."""
     qmax = 2.0 ** (bits - 1) - 1
 
     def q(g):
-        gf = g.float()
-        s = torch.clamp(torch.max(torch.abs(gf)), min=1e-12) / qmax
-        return (torch.round(gf / s).clamp(-qmax, qmax) * s).to(g.dtype)
+        top = _leaf_reduce(g, lambda t: torch.max(torch.abs(t.float())),
+                           "max")
+        s = torch.clamp(top, min=1e-12) / qmax
+        return sh.like(g, lambda t: (torch.round(t.float() / s).clamp(
+            -qmax, qmax) * s).to(t.dtype))
 
     return map_defs(q, grads)

@@ -994,3 +994,100 @@ def test_lm_serving_on_card_records_no_graph(cuda):
                            cache)
     assert not logits.requires_grad and logits.grad_fn is None
     assert lm.forward(params, {"tokens": tokens}, cfg).requires_grad
+
+
+# -- the mesh (NCCL) and decode_attn's log-sum-exp output ----------------------
+
+@pytest.mark.parametrize("dtypes", ["bf16", "f32"])
+@pytest.mark.parametrize("b,k,g,hd,s", [(8, 8, 5, 128, 2081),
+                                        (8, 16, 1, 128, 2081),
+                                        (8, 2, 2, 16, 24)])
+def test_decode_attn_lse_vs_plain(cuda, b, k, g, hd, s, dtypes):
+    """``return_lse``: float32 output and log-sum-exp against the plain
+    version at the LM shapes the mesh phase launches (qwen3-14b,
+    deepseek-moe-16b, the -smoke configs' slices), rows of length 0
+    included (output 0, lse -inf)."""
+    q_dt, kv_dt = DECODE_DTYPES[dtypes]
+    q, ck, cv, _ = _decode_inputs(np.random.default_rng(s + g), b, k, g, hd,
+                                  s, cuda, q_dt, kv_dt)
+    lens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, s + 1, b).astype(np.int32)).to(cuda)
+    lens[0], lens[1] = 0, s
+    before = decode_attn.launches
+    out, lse = flash_decode(q, ck, cv, lens, return_lse=True)
+    assert decode_attn.launches == before + 1
+    e_out, e_lse = flash_decode_ref(q, ck, cv, lens, return_lse=True)
+    torch.cuda.synchronize()
+    assert out.dtype == lse.dtype == torch.float32
+    assert lse.shape == (b, 1, k, g)
+    _assert_decode_close(out, e_out, q_dt, kv_dt)
+    assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+    assert bool((out[0] == 0).all()) and bool(torch.isneginf(lse[0]).all())
+    fin = torch.isfinite(e_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], e_lse[fin], rtol=1e-5, atol=1e-4)
+
+
+@pytest.fixture
+def nccl_world1(cuda):
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b-smoke", "deepseek-moe-16b-smoke"])
+def test_mesh_world1_nccl_equals_single_device(nccl_world1, arch):
+    """A world-1 NCCL mesh (1,1,1) on the card, float32 with TF32 off: two
+    train steps and prefill + 3 decode steps equal the single-device steps
+    on the card (the decode through the lse output and its merge)."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.core.executor import _full_fp32
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.nn.layers import leaves
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    cfg = get_config(arch)
+    init = lm.init_model(cfg, 0, device="cuda")
+    with _full_fp32():
+        single = ranks._train(cfg, init, 2, device="cuda")
+        got = ranks._train(cfg, init, 2, mesh=mesh)
+        prompt, dec = ranks.serve_inputs(cfg)
+        before = decode_attn.launches
+        logits, slots = ranks._serve(cfg, init, prompt, dec, mesh=mesh)
+        launched = decode_attn.launches - before
+        want, _ = ranks._serve(cfg, init, prompt, dec, device="cuda")
+    np.testing.assert_allclose(got[0], single[0], rtol=1e-5)
+    for a, b in zip(leaves(ranks._full(got[1])), leaves(single[1])):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+    torch.testing.assert_close(logits, want, rtol=0, atol=1e-5)
+    assert slots == ranks.SERVE_MAX
+    assert launched == ranks.SERVE_N * cfg.n_layers
+
+
+def test_mesh_multi_card(cuda, tmp_path):
+    """One NCCL rank a card, mesh (cards // 2, 2): train and serve steps
+    against one card's; skips below 2 cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 or more CUDA devices")
+    import torch_mesh_ranks as ranks
+    from repro_torch.nn.layers import leaves
+    out = ranks.spawn(ranks.card_check, n, tmp_path, timeout=600,
+                      backend="nccl")
+    # Adam moves an element by at most ~lr a step, whatever its gradient's
+    # last bits: the params' bound after 2 steps (the losses hold at 1e-5)
+    bound = 2 * ranks._ocfg().lr * 2
+    for arch in ranks.ARCHS:
+        r = out[arch]
+        np.testing.assert_allclose(r["losses"], r["single"], rtol=1e-5)
+        for a, b in zip(leaves(r["params"]), leaves(r["single_params"])):
+            torch.testing.assert_close(a, b, rtol=0, atol=bound)
+        torch.testing.assert_close(r["logits"], r["single_logits"], rtol=0,
+                                   atol=1e-5)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch``, not
-``chip_smoke.py`` and not the port's examples (``examples/torch``) import
-JAX or the reference package ``repro``."""
+``chip_smoke.py``, not the port's examples (``examples/torch``) and not the
+mesh tests' rank programs (``tests/torch_mesh_ranks.py``, which the card's
+tests import) import JAX or the reference package ``repro``."""
 import ast
 import os
 import shutil
@@ -13,7 +14,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "examples" / "torch").glob("*.py")))
+         + sorted((ROOT / "examples" / "torch").glob("*.py"))
+         + [ROOT / "tests" / "torch_mesh_ranks.py"])
 # the LM slice's modules, named so that a missing one fails here
 LM_SLICE = ("configs/base.py", "configs/__init__.py", "configs/qwen3_14b.py",
             "nn/layers.py", "nn/attention.py", "models/lm.py",
@@ -37,6 +39,14 @@ FAMILIES_SLICE = ("nn/moe.py", "nn/recurrent.py")
 TRAIN_SLICE = ("models/lm.py", "nn/attention.py", "train/optimizer.py",
                "train/trainer.py", "data/pipeline.py", "ckpt/checkpoint.py",
                "launch/train.py", "convert.py")
+# the mesh slice's modules, likewise
+MESH_SLICE = ("launch/mesh.py", "launch/__init__.py", "parallel/__init__.py",
+              "parallel/sharding.py", "parallel/collectives.py",
+              "nn/layers.py", "models/lm.py", "nn/moe.py",
+              "train/optimizer.py", "train/trainer.py", "train/serve.py",
+              "ckpt/checkpoint.py", "launch/train.py",
+              "kernels/decode_attn/decode_attn.py",
+              "kernels/decode_attn/ops.py", "kernels/decode_attn/ref.py")
 EXAMPLES = ("train_small_lm.py",)
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -92,7 +102,7 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
 
 @pytest.mark.parametrize("rel", list(dict.fromkeys(
     LM_SLICE + PLANNER_RUNTIME_SLICE + SERVING_SLICE + FAMILIES_SLICE
-    + TRAIN_SLICE)))
+    + TRAIN_SLICE + MESH_SLICE)))
 def test_lm_slice_module_present_and_clean(rel):
     path = PORT / rel
     assert path in FILES
