@@ -1733,7 +1733,7 @@ def _family_step_bytes(cfg, params, cache, b: int, pos: int) -> int:
 
     skip = nbytes(params["embed"]) + nbytes(params.get("encoder", {})) + \
         nbytes(params.get("mm_proj", {}))
-    total = nbytes(params) - skip + b * params["embed"][0].numel() * \
+    total = nbytes(params) - skip + b * params["embed"].shape[1] * \
         params["embed"].element_size()
     for (pattern, ng), stack in zip(lm.pattern_stacks(cfg), cache["stacks"]):
         for key, blk in stack.items():
@@ -1750,14 +1750,20 @@ def _family_step_bytes(cfg, params, cache, b: int, pos: int) -> int:
     return total
 
 
-def family_serve(arch, n_layers, s, n, dev) -> tuple[dict, dict]:
+def family_serve(arch, n_layers, s, n, dev, mesh=None,
+                 single=None) -> tuple[dict, dict]:
     """Phase (b) of one family: bf16 at full width (random weights, seed
     0), LM_BATCH prompts of ``s`` decoder tokens: a warm-up prefill, the
     timed prefill, then ``n`` greedy decode steps through the serve steps,
-    the last LM_PROFILED_STEPS of them under the profiler and none making a
-    synchronising call.  ``decode_attn`` must launch once for each
-    attention against a cache in each step, and no other kernel at all.
-    Returns the record and layer 0's live caches for phase (c)."""
+    the last LM_PROFILED_STEPS of them under the profiler.  ``decode_attn``
+    must launch once for each attention against a cache in each step, and
+    no other kernel at all.  On one device no decode step may make a
+    synchronising call.  With ``mesh`` the steps are the mesh's (params and
+    cache placed by its serve rules; each self-attention through the
+    kernel's log-sum-exp output and its merge), beside ``single``, the
+    same run's record on one device, whose first tokens they must repeat.
+    Returns the record and layer 0's live caches (local shards) for phase
+    (c)."""
     import dataclasses
 
     import numpy as np
@@ -1765,7 +1771,8 @@ def family_serve(arch, n_layers, s, n, dev) -> tuple[dict, dict]:
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.nn.layers import leaves
-    from repro_torch.train.serve import make_decode_step, make_prefill_step
+    from repro_torch.parallel.sharding import local
+    from repro_torch.train import serve
     cfg = get_config(arch)
     full_layers = cfg.n_layers
     if n_layers:
@@ -1775,15 +1782,22 @@ def family_serve(arch, n_layers, s, n, dev) -> tuple[dict, dict]:
     max_seq = prefix + s + n + 1
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = lm.init_model(cfg, 0, device=dev)
+    if mesh is None:
+        params = lm.init_model(cfg, 0, device=dev)
+        cache = lm.init_cache(cfg, b, max_seq, device=dev)
+        kw = dict(device=dev)
+    else:
+        rules = serve.serve_rules(mesh)
+        params = serve.init_serve_params(cfg, rules, 0)
+        cache = serve.place_cache(cfg, rules, b, max_seq)
+        kw = dict(mesh=mesh)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in leaves(params))
     params_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
     inp = _family_inputs(cfg, b, s, np.random.default_rng(0), dev)
-    cache = lm.init_cache(cfg, b, max_seq, device=dev)
-    prefill = make_prefill_step(cfg, b, max_seq, device=dev)
-    decode = make_decode_step(cfg, b, max_seq, device=dev)
+    prefill = serve.make_prefill_step(cfg, b, max_seq, **kw)
+    decode = serve.make_decode_step(cfg, b, max_seq, **kw)
     prefill(params, cache, inp)            # warm-up; refilled below
     torch.cuda.synchronize()
 
@@ -1794,17 +1808,21 @@ def family_serve(arch, n_layers, s, n, dev) -> tuple[dict, dict]:
     logits, cache = prefill(params, cache, inp)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    gen, positions = [torch.argmax(logits, -1)[:, None]], []
+    # a mesh's logits are (batch, vocab) DTensors: this rank's rows, whole
+    # along the vocab, are every row at world 1
+    gen, positions = [torch.argmax(local(logits), -1)[:, None]], []
 
     def step():
         positions.append(cache["pos"])
         out, _ = decode(params, cache, gen[-1])
+        out = local(out)
         gen.append(torch.argmax(out, -1)[:, None])
         return out
 
     timed = n - LM_PROFILED_STEPS
     t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
+    if mesh is None:
+        torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(timed):
             step()
@@ -1865,25 +1883,38 @@ def family_serve(arch, n_layers, s, n, dev) -> tuple[dict, dict]:
             by_name.items(), key=lambda kv: -kv[1])[:6]],
         launches=launches, peak_memory_gb=peak_gb, logits_finite=True,
         first_tokens=torch.cat(gen, dim=1)[0, :8].tolist())
-    print(f"lm_family {json.dumps(rec)}")
+    if mesh is not None:
+        rec.update(mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                   single_decode_ms_per_step=single["decode_ms_per_step"],
+                   single_prefill_ms=single["prefill_ms"],
+                   single_first_tokens=single["first_tokens"],
+                   mesh_overhead=step_ms / single["decode_ms_per_step"] - 1)
+        if rec["first_tokens"] != single["first_tokens"]:
+            raise AssertionError(f"mesh {arch}: first tokens "
+                                 f"{rec['first_tokens']}, one device "
+                                 f"{single['first_tokens']}")
+    print(f"{'mesh_family' if mesh is not None else 'lm_family'} "
+          f"{json.dumps(rec)}")
     live = {}
     for stack in cache["stacks"]:
         for blk in stack.values():
             for kind, c in (("self", blk.get("self", blk)),
                             ("cross", blk.get("cross"))):
                 if c is not None and "k" in c and kind not in live:
-                    live[kind] = dict(k=c["k"][0].clone(),
-                                      v=c["v"][0].clone())
+                    live[kind] = dict(k=local(c["k"])[0].clone(),
+                                      v=local(c["v"])[0].clone())
     live.update(cfg=cfg, pos=cache["pos"])
     del params, cache
     torch.cuda.empty_cache()
     return rec, live
 
 
-def family_kernel_cases(serve, live, dev) -> list[dict]:
+def family_kernel_cases(serve, live, dev, lse: bool = False) -> list[dict]:
     """Phase (c) of one family: flash-decode against its plain version on
     layer 0's live caches (bf16 q, as the decode path launches it), timed
-    beside its plain version, SDPA and the bound."""
+    beside its plain version, SDPA and the bound; with ``lse`` (a mesh's
+    serve) the self-attention cache through the log-sum-exp output, as the
+    mesh's decode launches it."""
     import numpy as np
     import torch
     cfg = live["cfg"]
@@ -1900,8 +1931,12 @@ def family_kernel_cases(serve, live, dev) -> list[dict]:
         n_valid = min(live["pos"], ck.shape[1]) if kind == "self" \
             else ck.shape[1]
         lens = torch.full((b,), n_valid, dtype=torch.int32, device=dev)
-        rec = decode_attn_case(f"{serve['arch']} {kind}, layer 0", q, ck, cv,
-                               lens, True)
+        label = f"{serve['arch']} {kind}, layer 0"
+        if lse and kind == "self":
+            rec = decode_attn_lse_case(cfg, ck, cv, n_valid, f"mesh {label}, "
+                                       f"lse output", dev)
+        else:
+            rec = decode_attn_case(label, q, ck, cv, lens, True)
         rec.update(arch=serve["arch"], cache=kind)
         recs.append(rec)
     del live["self"]
@@ -2361,7 +2396,19 @@ MESH_SERVE = dict(batch=2, prompt=16, decode_steps=4)
 # (b) qwen3-14b, 6 of 40 layers, bf16, 2 x 2048, 10 steps of
 # train_loop(mesh=), as TRAIN_BF16; (c) the full-depth bf16 serve of
 # lm_serve through the mesh's steps
-MESH_PHASE_LIMIT_S = 60.0
+# the hybrid, ssm, audio and vlm families on the mesh (mesh_family lines):
+# (a) as MESH_ARCHS, each cut to one group of its pattern: (arch, config
+# overrides, decoder prompt (None: MESH_SERVE's)); the hybrid's prompt of
+# 2052 fills its 2048-slot ring past the wrap, so each decode step
+# overwrites its oldest slot; (b) FAMILY_SERVES' bf16 serves at full width
+# and depth through the mesh's steps; (c) decode_attn's log-sum-exp output
+# on their live caches (the ring's K1 G16 hd256, whisper's hd64)
+MESH_FAMILY_CHECKS = (("recurrentgemma-9b", dict(n_layers=3), 2052),
+                      ("xlstm-1.3b", dict(n_layers=8), None),
+                      ("whisper-base", dict(n_layers=2, n_encoder_layers=2),
+                       None),
+                      ("llava-next-mistral-7b", dict(n_layers=2), None))
+MESH_PHASE_LIMIT_S = 180.0
 
 
 def release() -> float:
@@ -2388,11 +2435,14 @@ def _rel_err(got, want) -> float:
         float(want.float().abs().max()), 1e-30)
 
 
-def mesh_check_fp32(arch, mesh, dev, strict: bool = True) -> dict:
-    """Phase (a), one config cut to 2 layers in float32 with TF32 off:
-    MESH_TRAIN_STEPS train steps at TRAIN_CHECK's shape, then prefill and
-    MESH_SERVE's decode steps, through the mesh's steps against the
-    single-device steps on the same card, at MESH_TOL.  Not ``strict`` (a
+def mesh_check_fp32(arch, mesh, dev, strict: bool = True, overrides=None,
+                    prompt=None) -> dict:
+    """Phase (a), one config cut to 2 layers (or as ``overrides`` say) in
+    float32 with TF32 off: MESH_TRAIN_STEPS train steps at TRAIN_CHECK's
+    shape, then prefill (MESH_SERVE's prompt, or ``prompt`` tokens, and the
+    frontend's stub) and MESH_SERVE's decode steps, through the mesh's
+    steps against the single-device steps on the same card, at MESH_TOL.
+    Not ``strict`` (a
     mesh of several cards, whose sums run in other orders): losses and
     logits at MULTI_CARD_TOL, and every param within Adam's bound of 2 x lr
     a step of one device's (Adam turns a last-bit gradient difference into
@@ -2412,13 +2462,15 @@ def mesh_check_fp32(arch, mesh, dev, strict: bool = True) -> dict:
     from repro_torch.train.trainer import (TrainOptions, init_train_state,
                                            make_train_step)
     c = TRAIN_CHECK
-    cfg = dataclasses.replace(get_config(arch), n_layers=c["n_layers"],
-                              dtype="float32", attn_chunk=c["attn_chunk"])
+    cfg = dataclasses.replace(get_config(arch), **{
+        "n_layers": c["n_layers"], "dtype": "float32",
+        "attn_chunk": c["attn_chunk"], **(overrides or {})})
     ocfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
     batches = [_train_batch(cfg, c["batch"], c["seq"], i)
                for i in range(MESH_TRAIN_STEPS)]
-    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, dtype="float32",
-               batch=c["batch"], seq=c["seq"], tol=MESH_TOL,
+    rec = dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
+               kinds=[list(pat) for pat, _ in lm.pattern_stacks(cfg)],
+               dtype="float32", batch=c["batch"], seq=c["seq"], tol=MESH_TOL,
                allocated_before_gb=release())
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2454,17 +2506,19 @@ def mesh_check_fp32(arch, mesh, dev, strict: bool = True) -> dict:
         rec.update(train_losses=got, single_losses=single,
                    loss_rel_err=loss_err, param_rel_err=param_err)
         tol = MESH_TOL if strict else MULTI_CARD_TOL
-        if loss_err > tol or (param_err > tol if strict else
-                              abs_err > rec["adam_bound"]):
+        # written so that a NaN (a loss, a param) fails the check
+        if not (all(math.isfinite(x) for x in got + single)
+                and loss_err <= tol and (param_err <= tol if strict else
+                                         abs_err <= rec["adam_bound"])):
             raise AssertionError(f"mesh {arch} train: losses {got} vs "
                                  f"{single}, params {param_err}")
         # prefill + decode steps: mesh against one device
         sv = MESH_SERVE
-        b, s, n = sv["batch"], sv["prompt"], sv["decode_steps"]
-        max_seq = s + n + 1
+        b, s, n = sv["batch"], prompt or sv["prompt"], sv["decode_steps"]
+        prefix = cfg.n_patches if cfg.family == "vlm" else 0
+        max_seq = prefix + s + n + 1
         rng = np.random.default_rng(1)
-        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                               (b, s))).to(dev)
+        inputs = _family_inputs(cfg, b, s, rng, dev)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                              (n, b, 1))).to(dev)
         outs = {}
@@ -2480,7 +2534,7 @@ def mesh_check_fp32(arch, mesh, dev, strict: bool = True) -> dict:
                 kw = dict(mesh=mesh)
             pre = serve.make_prefill_step(cfg, b, max_seq, **kw)
             de = serve.make_decode_step(cfg, b, max_seq, **kw)
-            lg, cache = pre(p, cache, prompt)
+            lg, cache = pre(p, cache, inputs)
             seq = [lg]
             for i in range(n):
                 lg, cache = de(p, cache, toks[i])
@@ -2490,9 +2544,9 @@ def mesh_check_fp32(arch, mesh, dev, strict: bool = True) -> dict:
             del p, cache
         logit_err = max(_rel_err(a, b) for a, b in zip(outs["mesh"],
                                                        outs["single"]))
-        rec.update(serve_batch=b, prompt=s, decode_steps=n,
-                   logits_rel_err=logit_err)
-        if logit_err > tol:
+        rec.update(serve_batch=b, prompt=s, prefix=prefix, max_seq=max_seq,
+                   decode_steps=n, logits_rel_err=logit_err)
+        if not logit_err <= tol:
             raise AssertionError(f"mesh {arch} serve: logits differ by "
                                  f"{logit_err} of the largest")
     torch.cuda.synchronize()
@@ -2643,26 +2697,25 @@ def mesh_serve(mesh, dev, single=None) -> tuple[dict, dict]:
     return rec, live
 
 
-def decode_attn_lse_case(live, dev) -> dict:
-    """The log-sum-exp output of flash-decode on layer 0's live local
-    cache of the mesh serve (bf16 q as the path launches it) against its
-    plain version: output at rtol 2e-2 and an atol of 2e-2 x the plain
-    output's largest magnitude, lse at rtol 1e-5 and atol 1e-4; timed as
-    ``decode_attn_case`` times it."""
+def decode_attn_lse_case(cfg, ck, cv, n_valid: int, label: str,
+                         dev) -> dict:
+    """The log-sum-exp output of flash-decode on a live local cache of a
+    mesh serve (layer 0's ``ck``, ``cv``, its first ``n_valid`` slots; bf16
+    q as the path launches it) against its plain version: output at rtol
+    2e-2 and an atol of 2e-2 x the plain output's largest magnitude, lse at
+    rtol 1e-5 and atol 1e-4; timed as ``decode_attn_case`` times it."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attn.decode_attn import decode_attn
     from repro_torch.kernels.decode_attn.ops import (flash_decode,
                                                      flash_decode_ref)
-    cfg = live["cfg"]
-    ck, cv = live["k"], live["v"]
     b, k_, g, hd = (LM_BATCH, cfg.n_kv_heads, cfg.q_groups,
                     cfg.resolved_head_dim)
     s = ck.shape[1]
     q = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (b, 1, k_, g, hd)).astype(np.float32)).to(dev, ck.dtype)
-    lens = torch.full((b,), live["pos"], dtype=torch.int32, device=dev)
+    lens = torch.full((b,), n_valid, dtype=torch.int32, device=dev)
     before = decode_attn.launches
     out, lse = flash_decode(q, ck, cv, lens, return_lse=True)
     e_out, e_lse = flash_decode_ref(q, ck, cv, lens, return_lse=True)
@@ -2681,15 +2734,15 @@ def decode_attn_lse_case(live, dev) -> dict:
     kh, vh = (t.transpose(1, 2).contiguous() for t in (ck, cv))
     mask = (torch.arange(s, device=dev)[None, :]
             < lens[:, None])[:, None, None, :]
-    slots = float(live["pos"]) * b * k_
+    slots = float(n_valid) * b * k_
     n_bytes = (2 * slots * hd * 2 + b * k_ * g * hd * (2 + 4)
                + b * k_ * g * 4 + 4 * b)
     bound, by = bound_ms(n_bytes, 4.0 * slots * g * hd, PEAK_BF16_OPS_S)
     call = lambda: flash_decode(q, ck, cv, lens, return_lse=True)  # noqa
-    rec = dict(kernel="decode_attn", shape="mesh live cache, layer 0, lse "
-               "output", on_path=True, B=b, S=s, K=k_, G=g, hd=hd,
+    rec = dict(kernel="decode_attn", shape=label, cache="self",
+               on_path=True, B=b, S=s, K=k_, G=g, hd=hd,
                q_dtype=str(q.dtype), cache_dtype=str(ck.dtype),
-               lengths=[live["pos"]] * 2, max_abs_err=err,
+               lengths=[n_valid] * 2, max_abs_err=err,
                lse_max_abs_err=lse_err, plain_max_abs=plain_max,
                device_ms=kernel_device_ms(call, "decode_attn_",
                                           decode_attn.kernels_per_launch),
@@ -2726,14 +2779,17 @@ def mesh_attn_run(live, case) -> dict:
                 max_abs_err=case["max_abs_err"])
 
 
-def mesh_phase(dev, card: str, train_single=None,
-               serve_single=None) -> tuple[dict, dict]:
+def mesh_phase(dev, card: str, train_single=None, serve_single=None,
+               family_single=None) -> tuple[dict, dict]:
     """The mesh on torch.distributed: an in-process NCCL group of one rank,
     a (1,1,1) ("pod", "data", "model") mesh; (a) float32 checks of both
     mesh configs, (b) bf16 training through train_loop(mesh=), (c) the
     full-depth bf16 serve through the mesh's steps, and the kernel's
-    log-sum-exp output at the live shape.  Returns the summary and
-    decode_attn's numbers over the mesh serve."""
+    log-sum-exp output at the live shape; then the hybrid, ssm, audio and
+    vlm families (MESH_FAMILY_CHECKS, ``mesh_family`` lines), their bf16
+    serves beside ``family_single`` (arch -> the same run's single-device
+    ``family_serve`` record).  Returns the summary and decode_attn's
+    numbers over each mesh serve, by path."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -2749,23 +2805,54 @@ def mesh_phase(dev, card: str, train_single=None,
         print(f"mesh_train {json.dumps(dict(phase='b', **train))}")
         srv, live = mesh_serve(mesh, dev, serve_single)
         print(f"mesh_serve {json.dumps(srv)}")
-        case = decode_attn_lse_case(live, dev)
-        run = mesh_attn_run(live, case)
+        case = decode_attn_lse_case(live["cfg"], live["k"], live["v"],
+                                    live["pos"], "mesh live cache, layer 0, "
+                                    "lse output", dev)
+        runs = {"mesh_decode": mesh_attn_run(live, case)}
         del live
         torch.cuda.empty_cache()
+        fam_checks, fam_serves, fam_cases = [], [], []
+        for arch, overrides, prompt in MESH_FAMILY_CHECKS:
+            rec = mesh_check_fp32(arch, mesh, dev, overrides=overrides,
+                                  prompt=prompt)
+            fam_checks.append(rec)
+            print(f"mesh_family {json.dumps(dict(phase='a', **rec))}")
+        on_mesh = {a for a, _, _ in MESH_FAMILY_CHECKS}
+        for arch, n_layers, s, n in FAMILY_SERVES:
+            if arch not in on_mesh:
+                continue
+            # the single-device serve of lm_families_phase, or (the phase
+            # run alone) one made here
+            single = (family_single or {}).get(arch) or family_serve(
+                arch, n_layers, s, n, dev)[0]
+            release()
+            rec, live = family_serve(arch, n_layers, s, n, dev, mesh=mesh,
+                                     single=single)
+            fam_serves.append(rec)
+            if "self" in live:
+                cases = family_kernel_cases(rec, live, dev, lse=True)
+                fam_cases += cases
+                runs[f"mesh_family/{arch}"] = family_attn_totals(
+                    rec, live["cfg"], cases)
+            del live
+            release()
     finally:
         dist.destroy_process_group()
     summary = dict(seconds=time.perf_counter() - t0, world=1,
                    mesh=dict(zip(MESH_AXES, MESH_SHAPE)),
                    peak_memory_gb=max(r["peak_memory_gb"] for r in
-                                      (*checks, train, srv)),
-                   decode_attn_launches=run["launches"], card=card)
+                                      (*checks, train, srv, *fam_checks,
+                                       *fam_serves)),
+                   decode_attn_launches={k: r["launches"]
+                                         for k, r in runs.items()},
+                   card=card)
     print(f"mesh {json.dumps(summary)}")
     if summary["seconds"] > MESH_PHASE_LIMIT_S:
         print(f"mesh: the phase took {summary['seconds']:.1f} s, more than "
               f"its {MESH_PHASE_LIMIT_S} s budget", file=sys.stderr)
     return dict(checks=checks, train=train, serve=srv, lse_case=case,
-                **summary), run
+                family_checks=fam_checks, family_serves=fam_serves,
+                family_cases=fam_cases, **summary), runs
 
 
 def _multi_card_rank(rank, world, port, out_dir):
@@ -2820,6 +2907,86 @@ def mesh_multi_card(world: int) -> None:
     mp.start_processes(_multi_card_rank, args=(world, free_port(),
                                                str(out_dir)),
                        nprocs=world, join=True, start_method="spawn")
+
+
+# -- dry-run phase: launch/dryrun.py on fake 256- and 512-rank meshes -------
+
+# the reference's multi-pod test archs (tests/test_distributed.py:63-83)
+DRYRUN_MULTIPOD_ARCHS = ("qwen3-14b", "deepseek-moe-16b",
+                         "recurrentgemma-9b", "whisper-base", "xlstm-1.3b")
+DRYRUN_JOBS = 8                 # cells counted at once (the host's 8 cores)
+DRYRUN_CELL_TIMEOUT_S = 600
+# 60 cells of 2-50 s of fake dispatch each took 198-241 s on an H100
+# host's 8 cores, not the 120 s first aimed at
+DRYRUN_LIMIT_S = 300.0
+
+
+def dryrun_phase(out_dir: Path) -> dict:
+    """``python -m repro_torch.launch.dryrun`` over every (arch x shape)
+    cell on the fake 16x16 mesh and over DRYRUN_MULTIPOD_ARCHS' on 2x16x16
+    (``--multi-pod``), one cell a process (the fake process group is a
+    process's default group), DRYRUN_JOBS at a time; their records joined
+    in ``out_dir / "dryrun.jsonl"``.  Prints the ``dryrun`` line: cells ok,
+    skipped and failed, and seconds.  A failed cell fails the run.  Runs on
+    the host's cores only: no process touches the card."""
+    import concurrent.futures
+    import os
+    from repro_torch.configs import ARCHS, LM_SHAPES
+    # the costly shapes (train_4k, prefill_32k) first, so that the last
+    # cells to start are short ones
+    cells = [(a, sh.name, multi_pod) for sh in LM_SHAPES
+             for multi_pod, archs in ((False, ARCHS),
+                                      (True, DRYRUN_MULTIPOD_ARCHS))
+             for a in archs]
+    parts = out_dir / "dryrun_parts"
+    parts.mkdir(exist_ok=True)
+    for old in parts.glob("*.jsonl"):
+        old.unlink()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def count(i, cell):
+        arch, shape, multi_pod = cell
+        out = parts / f"{i:03d}.jsonl"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(out)]
+        proc = subprocess.run(cmd + ["--multi-pod"] * multi_pod, cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=DRYRUN_CELL_TIMEOUT_S)
+        recs = [json.loads(ln) for ln in out.read_text().splitlines()] \
+            if out.exists() else []
+        return cell, proc.returncode, recs, proc.stderr[-2000:]
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(DRYRUN_JOBS) as pool:
+        results = list(pool.map(count, range(len(cells)), cells))
+    seconds = time.perf_counter() - t0
+    recs, bad = [], []
+    for cell, rc, got, err in results:
+        recs += got
+        if rc != 0 or len(got) != 1 or got[0]["status"] not in ("ok",
+                                                                "skipped"):
+            bad.append((cell, rc, got, err))
+    (out_dir / "dryrun.jsonl").write_text(
+        "".join(json.dumps(r) + "\n" for r in recs))
+    ok = [r for r in recs if r["status"] == "ok"]
+    summary = dict(
+        cells=len(cells), ok=len(ok),
+        skipped=sum(r["status"] == "skipped" for r in recs),
+        failed=len(bad), seconds=seconds, jobs=DRYRUN_JOBS,
+        count_s_sum=sum(r["t_count_s"] for r in ok),
+        count_s_max=max((r["t_count_s"] for r in ok), default=0.0),
+        bottlenecks={b: sum(r["bottleneck"] == b for r in ok)
+                     for b in ("compute", "memory", "collective")},
+        useful_flops_frac={f"{r['arch']}/{r['shape']}@{r['mesh']}":
+                           r["useful_flops_frac"] for r in ok})
+    print(f"dryrun {json.dumps(summary)}")
+    if bad:
+        raise AssertionError(f"dry-run: {len(bad)} cells failed, the first "
+                             f"{bad[0][:3]}:\n{bad[0][3]}")
+    if seconds > DRYRUN_LIMIT_S:
+        print(f"dryrun: the phase took {seconds:.1f} s, more than its "
+              f"{DRYRUN_LIMIT_S} s budget", file=sys.stderr)
+    return summary
 
 
 def main() -> int:
@@ -2954,8 +3121,14 @@ def main() -> int:
     # float32 checks, (b) bf16 training, (c) the full-depth bf16 serve with
     # decode_attn's log-sum-exp output on the seq-sharded cache
     torch.cuda.empty_cache()
-    mesh, mesh_run = mesh_phase(dev, card, train["bf16"], serve)
+    family_single = {r["arch"]: r for r in fam_recs if r["phase"] == "b"}
+    mesh, mesh_runs = mesh_phase(dev, card, train["bf16"], serve,
+                                 family_single)
     (out_dir / "chip_smoke_mesh.json").write_text(json.dumps(mesh, indent=1))
+
+    # the dry-run: every cell counted on a fake 256- and 512-rank mesh, in
+    # processes of their own (CPU only)
+    dryrun_phase(out_dir)
 
     source = {"qgemm": "src/repro_torch/csrc/qgemm.cu",
               "dwconv3x3_bands": "src/repro_torch/csrc/dwconv.cu",
@@ -3002,7 +3175,7 @@ def main() -> int:
             launches_by_path={p["mode"]: p["launches"][name] for p in paths},
             serving_launches=serving["launches"][name]))
     line.append(decode_attn_line(serve, live, attn_recs,
-                                 {**fam_totals, "mesh_decode": mesh_run}))
+                                 {**fam_totals, **mesh_runs}))
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -57,7 +57,8 @@ def axis_names(mesh) -> tuple[str, ...]:
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
               device=None):
     """A ``DeviceMesh`` of ``shape`` with dims named ``axes`` over the
-    default process group, on CUDA (NCCL) unless ``device="cpu"`` (gloo).
+    default process group, on CUDA (NCCL) unless ``device="cpu"`` (gloo,
+    or the ``fake`` group that the dry-run initialises).
     Raises when CUDA is absent and the CPU was not asked for, when the
     process group is not initialised, and when ``prod(shape)`` is not the
     world size."""
@@ -82,7 +83,9 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
                          f"world has {world}")
     backend = str(dist.get_backend()).lower()
     want = "nccl" if kind == "cuda" else "gloo"
-    if want not in backend:
+    # a fake group (launch/dryrun.py: no process behind the other ranks)
+    # serves a CPU mesh of placeholder ranks
+    if want not in backend and not (kind == "cpu" and backend == "fake"):
         raise ValueError(f"a {kind} mesh needs the {want} backend, the "
                          f"process group has {backend}")
     if kind == "cuda":

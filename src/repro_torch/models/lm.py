@@ -24,16 +24,19 @@ each layer of a stack runs under ``torch.utils.checkpoint`` as
 modality frontends of the audio and vlm families are stubs, as in the
 reference: inputs carry precomputed frame or patch embeddings.
 
-On a mesh (DTensor params under ``parallel.sharding.use_rules``; dense and
-moe, the other families raise and wait in ``ROADMAP.md`` queue 1) the
-residual between layers and the logits are DTensors placed by the rules at
-the reference's ``shard_act`` sites; each layer runs the single-device
-blocks on this rank's batch rows (``_mesh_layer``): the MLP and the MoE's
-shared experts split over the model axis where the rules split ``ff``
-(column-parallel in, row-parallel out, the paper's Alg. 2), the other
-params gathered whole, MoE dispatch over every rank's rows, and a decode
-attention on this rank's slice of a KV cache split along its slots,
-merged across the model axis by log-sum-exp (``_decode_kv_shard``).
+On a mesh (DTensor params under ``parallel.sharding.use_rules``; every
+family) the residual between layers and the logits are DTensors placed by
+the rules at the reference's ``shard_act`` sites; each layer runs the
+single-device blocks on this rank's batch rows (``_mesh_layer``): the MLP
+and the MoE's shared experts split over the model axis where the rules
+split ``ff`` (column-parallel in, row-parallel out, the paper's Alg. 2),
+the other params gathered whole, MoE dispatch over every rank's rows, a
+decode attention on this rank's slice of a KV cache split along its slots
+(the hybrid's ring too), merged across the model axis by log-sum-exp
+(``_decode_kv_shard``), and recurrent states that the rules split along
+their channels gathered whole for the layer and written back to this
+rank's slice (``_state_whole``).  The frontends run on this rank's rows:
+the audio encoder as a stack of mesh layers, the vlm's patch projection.
 ``abstract_model`` and ``model_spec_tree`` give the rules their shapes and
 names.
 
@@ -345,11 +348,11 @@ def _self_attn(p, xn, ctx: Ctx, cache, local_window: int):
     q, k, v = _project_qkv(p, xn, ctx)
     if ctx.mesh is not None and cache is not None:
         if ctx.mode == "decode":
-            return _decode_kv_shard(q, k, v, cache, ctx)
-        _prefill_kv_shard(k, v, cache, ctx)
+            return _decode_kv_shard(q, k, v, cache, ctx, local_window)
+        _prefill_kv_shard(k, v, cache, ctx, local_window)
         return gqa_attention(q, k, v, q_pos=ctx.positions,
                              kv_pos=ctx.positions, causal=ctx.causal,
-                             chunk=cfg.attn_chunk)
+                             local_window=local_window, chunk=cfg.attn_chunk)
     if ctx.mode == "decode":
         w = cache["k"].shape[1]
         slot = ctx.pos % w if local_window else min(ctx.pos, w - 1)
@@ -395,35 +398,43 @@ def _kv_slice(ctx: Ctx, w_loc: int) -> tuple[int, int]:
     return r * w_loc, w_loc * n
 
 
-def _prefill_kv_shard(k, v, cache, ctx: Ctx) -> None:
-    """Prefill's cache write on this rank's slice of the slots: slot j of
-    the whole cache holds position j + max(s - w, 0) while j < min(s, w),
-    as the single-device write leaves it; the rest is zero and marked
-    unwritten."""
+def _prefill_kv_shard(k, v, cache, ctx: Ctx, local_window: int = 0) -> None:
+    """Prefill's cache write on this rank's slice of the slots: the whole
+    cache's slots hold what the single-device write leaves there (the last
+    ``w`` positions, rotated to the ring order ``p % w`` for a local
+    window), this rank copies its ``[off, off + w_loc)``; a slot past the
+    prompt is zero and marked unwritten."""
     ck, cv, kp = cache["k"], cache["v"], cache["kv_pos"]
     s, w_loc = k.shape[1], ck.shape[1]
     off, w = _kv_slice(ctx, w_loc)
     n = min(max(min(s, w) - off, 0), w_loc)
-    src = off + max(s - w, 0)
-    ck[:, :n] = k[:, src:src + n]
-    cv[:, :n] = v[:, src:src + n]
-    kp[:n] = ctx.positions[0, src:src + n]
+    slots = torch.arange(off, off + n, device=k.device)
+    if s >= w and local_window:
+        # slot j holds the position p of the last w with p % w == j
+        src = s - w + (slots - (s - w)) % w
+    else:
+        src = slots + max(s - w, 0)
+    ck[:, :n] = k[:, src]
+    cv[:, :n] = v[:, src]
+    kp[:n] = ctx.positions[0, src]
     ck[:, n:].zero_()
     cv[:, n:].zero_()
     kp[n:].fill_(-1)
 
 
-def _decode_kv_shard(q, k, v, cache, ctx: Ctx):
+def _decode_kv_shard(q, k, v, cache, ctx: Ctx, local_window: int = 0):
     """One decode attention against a cache whose slots the model axis
-    splits: the rank that holds the new token's slot writes it; each rank
-    attends its slice with its own valid length (0 where it holds none)
-    through the kernel's log-sum-exp output; the ranks merge by an
-    all-reduce MAX of the lse, then one SUM of exp(lse - max) * out beside
-    exp(lse - max)."""
+    splits: the rank that holds the new token's slot (``pos % w`` on a
+    local window's ring, else ``min(pos, w - 1)``) writes it; each rank
+    attends its share of the first ``min(pos + 1, w)`` slots (0 where it
+    holds none) through the kernel's log-sum-exp output; the ranks merge by
+    an all-reduce MAX of the lse, then one SUM of exp(lse - max) * out
+    beside exp(lse - max).  Attention over a set of slots does not see
+    their order, so the merge is the same for the ring."""
     ck, cv, kp = cache["k"], cache["v"], cache["kv_pos"]
     w_loc = ck.shape[1]
     off, w = _kv_slice(ctx, w_loc)
-    slot = min(ctx.pos, w - 1)
+    slot = ctx.pos % w if local_window else min(ctx.pos, w - 1)
     if off <= slot < off + w_loc:
         update_cache(ck, cv, k, v, slot - off)
         kp[slot - off:slot - off + 1].fill_(ctx.pos)
@@ -772,24 +783,76 @@ def _gather_block(tree: dict, layer: int, mc: MeshCtx, split=()) -> dict:
             for k, v in tree.items()}
 
 
+# block kinds whose cache is recurrent state (the rest hold attention caches)
+_RECURRENT = ("rec", "mlstm", "slstm")
+
+
+def _state_whole(blk: dict, layer: int, mc: MeshCtx):
+    """A recurrent block's layer-``layer`` state on this rank: its batch
+    rows, whole along the channels that the rules split over the model axis
+    (``rec``'s along ``rnn``, ``mlstm``'s along ``ff``: gathered), and a
+    ``write_back()`` that copies this rank's channel slice of each gathered
+    leaf into its local shard."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    out, back = {}, []
+    for name, t in blk.items():
+        loc = t.to_local()[layer]
+        # the stacked (layers, batch, ...) leaf's placements, less layers
+        place = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+                 for p in t.placements]
+        split = [d for d, p in enumerate(place)
+                 if isinstance(p, Shard) and p.dim > 0]
+        if not split:
+            out[name] = loc
+            continue
+        want = [Replicate() if d in split else p for d, p in enumerate(place)]
+        whole = DTensor.from_local(loc, t.device_mesh, place, run_check=False,
+                                   shape=t.shape[1:],
+                                   stride=_strides(t.shape[1:])) \
+            .redistribute(t.device_mesh, want).to_local()
+        out[name] = whole
+        mine = [slice(None)] * whole.dim()
+        for dim in {place[d].dim for d in split}:
+            mine[dim] = slice(*sh.row_range(whole.shape[dim], t.device_mesh,
+                                            place, dim=dim))
+        back.append((loc, whole, tuple(mine)))
+
+    def write_back():
+        for loc, whole, mine in back:
+            loc.copy_(whole[mine])
+
+    return out, write_back
+
+
 def _mesh_layer(x, layer: int, stack_params, stack_cache, pattern,
                 ctx: Ctx):
     """One layer of a stack on a mesh: this rank's rows of ``x`` and the
     layer's params (``_gather_block``), the pattern's blocks applied to
-    them with the single-device code (the cache through this rank's local
-    shards), and the rows back as a DTensor."""
+    them with the single-device code (attention caches through this rank's
+    local shards, recurrent states whole along their channels,
+    ``_state_whole``), and the rows back as a DTensor."""
     mc = ctx.mesh
     h = _rows(x, mc)
     for i, kind in enumerate(pattern):
         key = f"{i}_{kind}"
         gp = _gather_block(stack_params[key], layer, mc)
-        bc = None if stack_cache is None else map_defs(
-            lambda t: sh.local(t)[layer], stack_cache[key])
+        bc, write_back = None, None
+        if stack_cache is not None and kind in _RECURRENT:
+            bc, write_back = _state_whole(stack_cache[key], layer, mc)
+        elif stack_cache is not None:
+            bc = map_defs(lambda t: sh.local(t)[layer], stack_cache[key])
         h = apply_block(kind, gp, h, ctx, bc)
+        if write_back is not None:
+            write_back()
     return _from_rows(h, mc)
 
 
-MESH_FAMILIES = ("dense", "moe")
+def _self_cache(blk: dict) -> dict | None:
+    """A block cache's self-attention cache (``xattn``'s ``self``), or None
+    for recurrent state."""
+    if "self" in blk:
+        return blk["self"]
+    return blk if "kv_pos" in blk else None
 
 
 def _mesh_ctx(rules, cfg: ModelConfig, b: int, cache) -> MeshCtx:
@@ -797,17 +860,14 @@ def _mesh_ctx(rules, cfg: ModelConfig, b: int, cache) -> MeshCtx:
     if rules is None or rules.mesh is None:
         raise ValueError("DTensor params need a mesh's rules "
                          "(parallel.sharding.use_rules)")
-    if cfg.family not in MESH_FAMILIES:
-        raise ValueError(f"{cfg.name}: the {cfg.family} family does not run "
-                         f"on a mesh yet (ROADMAP.md queue 1); the mesh "
-                         f"steps take {MESH_FAMILIES}")
     mesh = rules.mesh
     rows = sh.rows_placements(rules, (b, 1))
     kv = None
-    if cache is not None:
-        ck = next(blk["k"] for stack in cache["stacks"]
-                  for blk in stack.values())
-        for d, p in enumerate(ck.placements):
+    attn = [] if cache is None else [
+        c for stack in cache["stacks"] for blk in stack.values()
+        if (c := _self_cache(blk)) is not None]
+    if attn:       # every self-attention cache of a model is split alike
+        for d, p in enumerate(attn[0]["k"].placements):
             if isinstance(p, Shard) and p.dim == 2:      # kv_seq
                 kv = (mesh.get_group(d), mesh.size(d),
                       mesh.get_local_rank(d))
@@ -821,20 +881,49 @@ def _mesh_ctx(rules, cfg: ModelConfig, b: int, cache) -> MeshCtx:
 
 def _mesh_forward(params, inputs: dict, cfg: ModelConfig, mode: str,
                   cache):
-    """``_forward`` over DTensor params on the rules' mesh: the embedding
-    and every layer on this rank's batch rows with gathered params (the
-    decode attention on this rank's slice of a split cache), the residual
-    between layers placed by the rules, the logits a DTensor."""
+    """``_forward`` over DTensor params on the rules' mesh: the frontends,
+    the embedding and every layer on this rank's batch rows with gathered
+    params (the decode attention on this rank's slice of a split cache),
+    the residual between layers placed by the rules, the logits a
+    DTensor."""
     dt = torch_dtype(cfg.dtype)
     dev = params["embed"].device
-    tokens = inputs["tokens"]
-    tokens = tokens.full_tensor() if sh.is_dtensor(tokens) else \
-        torch.as_tensor(tokens, device=dev)
+    d = cfg.d_model
+
+    def whole(t):
+        return t.full_tensor() if sh.is_dtensor(t) else \
+            torch.as_tensor(t, device=dev)
+
+    tokens = whole(inputs["tokens"])
     b = tokens.shape[0]
     mc = _mesh_ctx(sh.current_rules(), cfg, b, cache)
     r0, r1 = mc.row_range
-    x = sh.replicated(params["embed"], mc.grad).to(dt)[
-        tokens[r0:r1].to(dev).long()]
+
+    def gathered(tree):
+        return map_defs(lambda t: sh.replicated(t, mc.grad), tree)
+
+    x = gathered(params["embed"]).to(dt)[tokens[r0:r1].to(dev).long()]
+    local = {k: whole(v)[r0:r1] for k, v in inputs.items()
+             if k in ("frames", "patches")}
+    enc_out = None
+    if cfg.family == "vlm" and mode != "decode":
+        patches = _frontend_input(local, "patches", 0, cfg, dev, dt) @ \
+            gathered(params["mm_proj"]).to(dt)
+        x = torch.cat([patches, x], dim=1)
+    if cfg.family == "audio" and mode != "decode":
+        frames = _frontend_input(local, "frames", cfg.n_audio_frames
+                                 if mode == "prefill" else 0, cfg, dev, dt)
+        f = frames.shape[1]
+        fpos = torch.arange(f, dtype=torch.int32, device=dev)[None].expand(
+            r1 - r0, f)
+        xe = _from_rows(frames + _sinusoid(fpos, d).to(dt), mc)
+        ectx = Ctx(cfg=cfg, mode="train", positions=fpos, causal=False,
+                   mesh=mc)
+        xe = _run_stacks(params["encoder"], xe, ectx, None,
+                         [(("enc_attn",), cfg.n_encoder_layers)])
+        enc_out = apply_norm(_rows(xe, mc),
+                             gathered(params["encoder"]["out_ln"]), cfg.norm,
+                             1e-6)
     pos0 = int(cache["pos"]) if mode == "decode" else 0
     if mode == "decode":
         positions = torch.full((r1 - r0, 1), pos0, dtype=torch.int32,
@@ -842,17 +931,18 @@ def _mesh_forward(params, inputs: dict, cfg: ModelConfig, mode: str,
     else:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=dev)[None].expand(r1 - r0, -1)
+    if cfg.rope_theta == 0:   # whisper: absolute sinusoidal positions
+        x = x + _sinusoid(positions, d).to(dt)
     x = shard_act(_from_rows(x, mc), ("batch", "seq", "act_embed"))
-    ctx = Ctx(cfg=cfg, mode=mode, positions=positions, pos=pos0, mesh=mc)
+    ctx = Ctx(cfg=cfg, mode=mode, positions=positions, pos=pos0,
+              enc_out=enc_out, mesh=mc)
     x = _run_stacks(params, x, ctx, cache if mode != "train" else None,
                     pattern_stacks(cfg))
     if mode == "train":
         x = shard_act(x, ("batch", None, "act_embed"))
-    x = apply_norm(_rows(x, mc), map_defs(
-        lambda t: sh.replicated(t, mc.grad), params["out_ln"]), cfg.norm,
-        1e-6)
-    head = (sh.replicated(params["embed"], mc.grad).T if cfg.tie_embeddings
-            else sh.replicated(params["lm_head"], mc.grad)).to(dt)
+    x = apply_norm(_rows(x, mc), gathered(params["out_ln"]), cfg.norm, 1e-6)
+    head = (gathered(params["embed"]).T if cfg.tie_embeddings
+            else gathered(params["lm_head"])).to(dt)
     if mode == "train":
         return shard_act(_from_rows(x @ head, mc), ("batch", None, "vocab"))
     if mode == "prefill":

@@ -14,6 +14,7 @@ they return new states, which ``models/lm.py`` copies into the cache.
 """
 from __future__ import annotations
 
+import contextvars
 import math
 
 import torch
@@ -180,7 +181,11 @@ def _mlstm_chunk(q, k, v, i_gate, lf, state):
     dmat = (i_gate[:, :, None, :] + b_cum[:, :, :, None]
             - b_cum[:, :, None, :] - m_t[..., None])
     mask = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
-    dexp = torch.where(mask, torch.exp(dmat), 0.0)
+    # exp after the mask (the reference takes it before): the same values,
+    # but exp(dmat) above the diagonal overflows to inf in long chunks
+    # (the decay grows with the distance), and the where's gradient there,
+    # 0 x inf, is NaN in every gate
+    dexp = torch.exp(torch.where(mask, dmat, -math.inf))
     del dmat
     s = torch.einsum("bhtd,bhsd->bhts", qf, kf) * scale * dexp
     del dexp
@@ -272,30 +277,55 @@ def slstm_state(batch: int, d: int, device):
     return z, z + 1e-6, z.clone(), z - 10.0
 
 
+# runs ``run_steps``' loops in its place where set: ``launch/analysis.py``
+# counts a loop of identical steps as one step times its trip count
+STEPS_HOOK: contextvars.ContextVar = contextvars.ContextVar("steps_hook",
+                                                           default=None)
+
+
+def run_steps(step, carry: tuple, xs, consts: tuple):
+    """``carry, y = step(carry, xs[:, t], *consts)`` for each t along dim 1
+    of ``xs``: the final carry and the ys stacked along dim 1 (the
+    reference's ``lax.scan`` over time)."""
+    hook = STEPS_HOOK.get()
+    if hook is not None:
+        return hook(step, carry, xs, consts)
+    ys = []
+    for t in range(xs.shape[1]):
+        carry, y = step(carry, xs[:, t], *consts)
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)
+
+
+def _slstm_step(state, pre_t, r):
+    """One sLSTM step: state (c, n, h, m), each (B, d); pre_t (B, 4d) the
+    input projection; r (4, H, dh, dh) the block-diagonal recurrence."""
+    c, n, h, m = state
+    b, d = h.shape
+    n_heads, dh = r.shape[1], r.shape[2]
+    hh = h.reshape(b, n_heads, dh)
+    rec = torch.einsum("bhd,ghde->bghe", hh, r).reshape(b, 4 * d)
+    g = pre_t.float() + rec
+    zt, it, ft, ot = torch.chunk(g, 4, dim=-1)
+    zt = torch.tanh(zt)
+    ot = torch.sigmoid(ot)
+    lf = F.logsigmoid(ft)
+    m_new = torch.maximum(lf + m, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(lf + m - m_new)
+    c = f_p * c + i_p * zt
+    n = f_p * n + i_p
+    h = ot * c / torch.clamp(n, min=1e-6)
+    return (c, n, h, m_new), h
+
+
 def slstm_sequence(p, x, n_heads: int, state=None):
-    """x: (B, S, d).  Returns (h_seq (B, S, d), final_state)."""
+    """x: (B, S, d).  Returns (h_seq (B, S, d), final_state).
+    ``n_heads`` (the reference's argument) is ``p["r"]``'s second dim."""
     B, S, d = x.shape
-    dh = d // n_heads
     pre = x @ p["w_in"] + p["b"]                      # (B, S, 4d)
     if state is None:
         state = slstm_state(B, d, x.device)
     r = p["r"].float()                                # (4, H, dh, dh)
-    c, n, h, m = state
-    hs = []
-    for t in range(S):
-        hh = h.reshape(B, n_heads, dh)
-        rec = torch.einsum("bhd,ghde->bghe", hh, r).reshape(B, 4 * d)
-        g = pre[:, t].float() + rec
-        zt, it, ft, ot = torch.chunk(g, 4, dim=-1)
-        zt = torch.tanh(zt)
-        ot = torch.sigmoid(ot)
-        lf = F.logsigmoid(ft)
-        m_new = torch.maximum(lf + m, it)
-        i_p = torch.exp(it - m_new)
-        f_p = torch.exp(lf + m - m_new)
-        c = f_p * c + i_p * zt
-        n = f_p * n + i_p
-        h = ot * c / torch.clamp(n, min=1e-6)
-        m = m_new
-        hs.append(h)
-    return torch.stack(hs, dim=1).to(x.dtype), (c, n, h, m)
+    state, hs = run_steps(_slstm_step, tuple(state), pre, (r,))
+    return hs.to(x.dtype), state

@@ -391,13 +391,14 @@ def summed(x, mesh, placements, dim: int):
     return dt.redistribute(mesh, placements).to_local()
 
 
-def row_range(n: int, mesh, placements) -> tuple[int, int]:
+def row_range(n: int, mesh, placements, dim: int = 0) -> tuple[int, int]:
     """[start, stop) of this rank's rows of an ``n``-row tensor placed by
-    ``placements`` (dim 0 split evenly, mesh dims in order)."""
+    ``placements`` (tensor dim ``dim`` split evenly, mesh dims in
+    order)."""
     from torch.distributed.tensor import Shard
     start, size = 0, n
     for d, p in enumerate(placements):
-        if isinstance(p, Shard) and p.dim == 0:
+        if isinstance(p, Shard) and p.dim == dim:
             size //= mesh.size(d)
             start += mesh.get_local_rank(d) * size
     return start, start + size

@@ -1,9 +1,9 @@
 """Serving steps, ported from ``repro/train/serve.py``: prefill (fills the
 KV and recurrent caches) and decode (one token against them), for every LM
-family on one device, and for the dense and moe families on a mesh, with
-params placed by the serve rules (tensor parallel over the model axis,
-FSDP over the data axes) and caches sharded as the reference shards them
-(batch -> data, kv sequence -> model), so that 32k-context x 128-batch
+family on one device or on a mesh, with params placed by the serve rules
+(tensor parallel over the model axis, FSDP over the data axes) and caches
+sharded as the reference shards them (batch -> data, kv sequence ->
+model, recurrent channels -> model), so that 32k-context x 128-batch
 caches fit.
 
 The reference jits each step and donates the cache; the port runs eagerly
@@ -156,9 +156,6 @@ def _checked(cfg: ModelConfig, batch: int, max_seq: int, device, mode: str,
         if device is not None:
             raise ValueError("a mesh step runs on its mesh's device: pass "
                              "mesh or device, not both")
-        if cfg.family not in lm.MESH_FAMILIES:
-            raise ValueError(f"{cfg.name}: the {cfg.family} family does not "
-                             f"run on a mesh yet (ROADMAP.md queue 1)")
     dev = mesh_device(mesh) if mesh is not None else resolve_device(device)
     rules = serve_rules(mesh, routing) if mesh is not None else None
     want = _want_shapes(cfg, batch, max_seq)

@@ -129,14 +129,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     rules (``step.rules``) on the mesh's device, over params and moments
     placed by them (``init_train_state(..., mesh=, rules=step.rules)``);
     the batch is the global batch, the same on every rank (or DTensors of
-    it).  Dense and moe configs run on a mesh; the others raise."""
+    it).  Every family runs on a mesh."""
     if mesh is not None:
         if device is not None:
             raise ValueError("a mesh step runs on its mesh's device: pass "
                              "mesh or device, not both")
-        if cfg.family not in lm.MESH_FAMILIES:
-            raise ValueError(f"{cfg.name}: the {cfg.family} family does not "
-                             f"run on a mesh yet (ROADMAP.md queue 1)")
     dev = mesh_device(mesh) if mesh is not None else resolve_device(device)
     rules = train_rules(mesh, options) if mesh is not None else None
 

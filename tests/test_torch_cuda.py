@@ -1001,12 +1001,16 @@ def test_lm_serving_on_card_records_no_graph(cuda):
 @pytest.mark.parametrize("dtypes", ["bf16", "f32"])
 @pytest.mark.parametrize("b,k,g,hd,s", [(8, 8, 5, 128, 2081),
                                         (8, 16, 1, 128, 2081),
-                                        (8, 2, 2, 16, 24)])
+                                        (8, 2, 2, 16, 24),
+                                        (8, 1, 16, 256, 2048),
+                                        (8, 8, 1, 64, 457),
+                                        (8, 8, 4, 128, 2057)])
 def test_decode_attn_lse_vs_plain(cuda, b, k, g, hd, s, dtypes):
     """``return_lse``: float32 output and log-sum-exp against the plain
     version at the LM shapes the mesh phase launches (qwen3-14b,
-    deepseek-moe-16b, the -smoke configs' slices), rows of length 0
-    included (output 0, lse -inf)."""
+    deepseek-moe-16b, the -smoke configs' slices; recurrentgemma-9b's ring
+    (K1 G16 hd256, 2048 slots), whisper-base's self cache (hd64) and
+    llava's), rows of length 0 included (output 0, lse -inf)."""
     q_dt, kv_dt = DECODE_DTYPES[dtypes]
     q, ck, cv, _ = _decode_inputs(np.random.default_rng(s + g), b, k, g, hd,
                                   s, cuda, q_dt, kv_dt)
@@ -1069,6 +1073,47 @@ def test_mesh_world1_nccl_equals_single_device(nccl_world1, arch):
     torch.testing.assert_close(logits, want, rtol=0, atol=1e-5)
     assert slots == ranks.SERVE_MAX
     assert launched == ranks.SERVE_N * cfg.n_layers
+
+
+MESH_FAMILY_SMOKE = ["recurrentgemma-9b-smoke", "xlstm-1.3b-smoke",
+                     "whisper-base-smoke", "llava-next-mistral-7b-smoke"]
+
+
+@pytest.mark.parametrize("arch", MESH_FAMILY_SMOKE)
+def test_mesh_family_world1_nccl_equals_single_device(nccl_world1, arch):
+    """The hybrid, ssm, audio and vlm families on a world-1 NCCL mesh
+    (1,1,1), float32 with TF32 off: two train steps and prefill + 3 decode
+    steps equal the single-device steps on the card; decode_attn launches
+    once for each attention cache a step (self through the lse output, and
+    whisper's cross cache); the hybrid's decode past the wrap of its ring
+    (prompt 8, 12 steps) equals one device's at every step."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.core.executor import _full_fp32
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.nn.layers import leaves
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    cfg = get_config(arch)
+    per_step = sum(ng * {"attn": 1, "xattn": 2}.get(kind, 0)
+                   for pattern, ng in lm.pattern_stacks(cfg)
+                   for kind in pattern)
+    init = lm.init_model(cfg, 0, device="cuda")
+    cases = [(ranks.SERVE_S, ranks.SERVE_N)]
+    if arch == ranks.RING_ARCH:
+        cases.append((ranks.RING_PROMPT, ranks.RING_STEPS))
+    with _full_fp32():
+        single = ranks._train(cfg, init, 2, device="cuda")
+        got = ranks._train(cfg, init, 2, mesh=mesh)
+        for s, n in cases:
+            prompt, dec = ranks.serve_inputs(cfg, s, n)
+            before = decode_attn.launches
+            logits, _ = ranks._serve(cfg, init, prompt, dec, mesh=mesh)
+            assert decode_attn.launches - before == n * per_step
+            want, _ = ranks._serve(cfg, init, prompt, dec, device="cuda")
+            torch.testing.assert_close(logits, want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[0], single[0], rtol=1e-5)
+    for a, b in zip(leaves(ranks._full(got[1])), leaves(single[1])):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
 
 
 def test_mesh_multi_card(cuda, tmp_path):

@@ -47,6 +47,8 @@ MESH_SLICE = ("launch/mesh.py", "launch/__init__.py", "parallel/__init__.py",
               "ckpt/checkpoint.py", "launch/train.py",
               "kernels/decode_attn/decode_attn.py",
               "kernels/decode_attn/ops.py", "kernels/decode_attn/ref.py")
+# the dry-run slice's modules, likewise
+DRYRUN_SLICE = ("launch/analysis.py", "launch/dryrun.py")
 EXAMPLES = ("train_small_lm.py",)
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -102,7 +104,7 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
 
 @pytest.mark.parametrize("rel", list(dict.fromkeys(
     LM_SLICE + PLANNER_RUNTIME_SLICE + SERVING_SLICE + FAMILIES_SLICE
-    + TRAIN_SLICE + MESH_SLICE)))
+    + TRAIN_SLICE + MESH_SLICE + DRYRUN_SLICE)))
 def test_lm_slice_module_present_and_clean(rel):
     path = PORT / rel
     assert path in FILES

@@ -324,23 +324,6 @@ def test_make_mesh_checks(world1):
             make_mesh((1, 1), ("data", "model"))
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b-smoke",
-                                  "xlstm-1.3b-smoke", "whisper-base-smoke",
-                                  "llava-next-mistral-7b-smoke"])
-def test_unsupported_family_raises_on_mesh(world1, arch):
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.train import serve
-    from repro_torch.train.optimizer import OptConfig
-    from repro_torch.train.trainer import make_train_step
-    cfg = get_config(arch)
-    m = make_mesh((1, 1), ("data", "model"), device="cpu")
-    for build in (lambda: make_train_step(cfg, OptConfig(), mesh=m),
-                  lambda: serve.make_prefill_step(cfg, 2, 8, mesh=m),
-                  lambda: serve.make_decode_step(cfg, 2, 8, mesh=m)):
-        with pytest.raises(ValueError, match="ROADMAP.md queue 1"):
-            build()
-
-
 def test_mesh_step_world1_equals_single_device(world1):
     """A world-1 gloo mesh (1,1,1): train, prefill and decode equal the
     single-device steps."""

@@ -204,3 +204,57 @@ def test_serving_records_no_graph(arch):
     assert n == 0 and not logits.requires_grad
     # train mode records where autograd is on
     assert lm.forward(params, {"tokens": tokens}, cfg).requires_grad
+
+
+@pytest.mark.parametrize("length", [64, 256])
+def test_mlstm_chunk_gate_grads_vs_reference(length):
+    """One mLSTM chunk of ``length`` steps: the output equals the
+    reference's; so do the gradients of q and of both gates where the
+    reference's are finite (64 steps).  At 256 steps the decay above the
+    chunk's diagonal, exp(B_t - B_tau), overflows: the reference takes exp
+    before its mask, and the where's gradient there (0 x inf) makes every
+    gate gradient NaN; the port masks first and keeps them finite (its
+    output bit for bit what exp before the mask gives).  Each array is held
+    at a tolerance of its largest magnitude: 1e-5 at 64 steps, 1e-4 at 256,
+    where both packages sum 256 float32 products in other orders and divide
+    by the normaliser."""
+    from repro.nn import recurrent as jrec
+    from repro_torch.nn import recurrent as rec
+    rng = np.random.default_rng(length)
+    b, h, dk = 2, 2, 8
+    q, k, v = (rng.standard_normal((b, h, length, dk)).astype(np.float32)
+               for _ in range(3))
+    k /= np.sqrt(np.float32(dk))          # as the model scales its keys
+    ig = rng.standard_normal((b, h, length)).astype(np.float32)
+    lf = np.log(1 / (1 + np.exp(-rng.standard_normal((b, h, length))
+                                - 0.5))).astype(np.float32)
+    state = (np.zeros((b, h, dk, dk), np.float32),
+             np.zeros((b, h, dk), np.float32), np.zeros((b, h), np.float32))
+
+    def jloss(q_, ig_, lf_):
+        out, _ = jrec._mlstm_chunk(q_, jnp.asarray(k), jnp.asarray(v), ig_,
+                                   lf_, tuple(map(jnp.asarray, state)))
+        return out.sum(), out
+
+    (_, jout), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                       has_aux=True)(
+        jnp.asarray(q), jnp.asarray(ig), jnp.asarray(lf))
+    tq, tig, tlf = (torch.from_numpy(a).requires_grad_() for a in (q, ig, lf))
+    out, _ = rec._mlstm_chunk(tq, torch.from_numpy(k), torch.from_numpy(v),
+                              tig, tlf, tuple(map(torch.from_numpy, state)))
+    out.sum().backward()
+    tol = 1e-5 if length == 64 else 1e-4
+
+    def close(got, exp):
+        exp = np.asarray(exp)
+        np.testing.assert_allclose(got, exp, rtol=tol,
+                                   atol=tol * float(np.abs(exp).max()))
+
+    close(out.detach().numpy(), jout)
+    grads = (tq.grad, tig.grad, tlf.grad)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    finite = [bool(jnp.isfinite(g).all()) for g in jg]
+    assert finite == ([True] * 3 if length == 64 else [True, False, False])
+    for got, exp, ok in zip(grads, jg, finite):
+        if ok:
+            close(got.numpy(), exp)

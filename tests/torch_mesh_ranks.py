@@ -23,6 +23,12 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 ARCHS = ("qwen3-14b-smoke", "deepseek-moe-16b-smoke")
+# the hybrid, ssm, audio and vlm families (tests/test_torch_mesh_families.py)
+FAMILY_ARCHS = ("recurrentgemma-9b-smoke", "xlstm-1.3b-smoke",
+                "whisper-base-smoke", "llava-next-mistral-7b-smoke")
+# the hybrid's ring: a prompt of 8, then 12 decode steps past the wrap of
+# its 16-slot window (positions 8..19), split over the model axis
+RING_ARCH, RING_PROMPT, RING_STEPS = "recurrentgemma-9b-smoke", 8, 12
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 32, 3
 SERVE_B, SERVE_S, SERVE_N, SERVE_MAX = 8, 16, 3, 24
 # (name, routing, microbatches, compress_grads)
@@ -118,6 +124,27 @@ def _full(tree):
                     .detach().clone(), tree)
 
 
+def frontend_stub(cfg, b: int, rng) -> dict:
+    """The stub frontend's input of an audio (``frames``) or vlm
+    (``patches``) config, float32 from ``rng``; {} for the others."""
+    stub = {"audio": ("frames", cfg.n_audio_frames),
+            "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
+    if stub is None:
+        return {}
+    return {stub[0]: rng.standard_normal((b, stub[1], cfg.d_model)).astype(
+        np.float32)}
+
+
+def train_batch(cfg, step: int) -> dict:
+    """SyntheticLM's batch ``step`` (TRAIN_BATCH x TRAIN_SEQ) and its
+    frontend stub."""
+    from repro_torch.data.pipeline import SyntheticLM
+    batch = SyntheticLM(cfg.vocab_size, seed=0).batch(step, TRAIN_BATCH,
+                                                      TRAIN_SEQ)
+    return {**batch, **frontend_stub(cfg, TRAIN_BATCH,
+                                     np.random.default_rng(100 + step))}
+
+
 def _ocfg():
     from repro_torch.train.optimizer import OptConfig
     return OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
@@ -129,7 +156,6 @@ def _train(cfg, params, steps, *, mesh=None, start=0, state=None,
     batches ``start``..; returns (losses, params, opt state).  A list
     ``grads`` (one device only) receives each element's smallest gradient
     magnitude over the steps, a tensor a leaf."""
-    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.parallel.sharding import shard_tree, param_shardings
     from repro_torch.models import lm
     from repro_torch.train.optimizer import init_opt_state
@@ -143,10 +169,9 @@ def _train(cfg, params, steps, *, mesh=None, start=0, state=None,
                 lm.model_spec_tree(cfg), step.rules, shapes=params))
         state = (params, init_opt_state(params))
     p, o = state
-    data = SyntheticLM(cfg.vocab_size, seed=0)
     losses = []
     for i in range(start, start + steps):
-        batch = data.batch(i, TRAIN_BATCH, TRAIN_SEQ)
+        batch = train_batch(cfg, i)
         if grads is not None:
             from repro_torch.nn.layers import leaves
             from repro_torch.train.trainer import loss_and_grads, to_device
@@ -160,29 +185,34 @@ def _train(cfg, params, steps, *, mesh=None, start=0, state=None,
 
 
 def _serve(cfg, params, prompt, dec, *, mesh=None, device="cpu"):
-    """Prefill + len(dec) decode steps; the logits of each, and the local
-    slot count of layer 0's K cache."""
+    """Prefill of ``prompt`` (a dict of host arrays) + len(dec) decode
+    steps; the logits of each, and the local slot count of the first
+    self-attention cache (None where the model has none)."""
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import local, shard_tree
     from repro_torch.train import serve
+    b = len(prompt["tokens"])
     kw = dict(mesh=mesh) if mesh is not None else dict(device=device)
-    pre = serve.make_prefill_step(cfg, SERVE_B, SERVE_MAX, **kw)
-    de = serve.make_decode_step(cfg, SERVE_B, SERVE_MAX, **kw)
+    pre = serve.make_prefill_step(cfg, b, SERVE_MAX, **kw)
+    de = serve.make_decode_step(cfg, b, SERVE_MAX, **kw)
     if mesh is None:
-        cache = lm.init_cache(cfg, SERVE_B, SERVE_MAX, device=device)
+        cache = lm.init_cache(cfg, b, SERVE_MAX, device=device)
     else:
         _, p_sh = serve.abstract_serve_params(cfg, pre.rules)
         params = shard_tree(params, p_sh)
-        cache = serve.place_cache(cfg, pre.rules, SERVE_B, SERVE_MAX)
+        cache = serve.place_cache(cfg, pre.rules, b, SERVE_MAX)
     full = (lambda t: t.full_tensor()) if mesh is not None else (lambda t: t)
     dev = next(iter(leaves_of(params))).device
-    lg, cache = pre(params, cache, torch.from_numpy(prompt).to(dev))
+    lg, cache = pre(params, cache, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in prompt.items()})
     out = [full(lg).cpu()]
     for t in range(len(dec)):
         lg, cache = de(params, cache, torch.from_numpy(dec[t]).to(dev))
         out.append(full(lg).cpu())
-    k0 = next(iter(cache["stacks"][0].values()))["k"]
-    return torch.stack(out), int(local(k0).shape[2])
+    attn = [c for stack in cache["stacks"] for blk in stack.values()
+            if (c := lm._self_cache(blk)) is not None]
+    return torch.stack(out), (int(local(attn[0]["k"]).shape[2]) if attn
+                              else None)
 
 
 def leaves_of(tree):
@@ -190,13 +220,13 @@ def leaves_of(tree):
     return leaves(tree)
 
 
-def serve_inputs(cfg):
+def serve_inputs(cfg, s: int = SERVE_S, n: int = SERVE_N):
+    """({'tokens': (SERVE_B, s)} and the frontend stub, decode tokens
+    (n, SERVE_B, 1)), host arrays from a seed."""
     rng = np.random.default_rng(5)
-    prompt = rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_S)).astype(
-        np.int32)
-    dec = rng.integers(0, cfg.vocab_size, (SERVE_N, SERVE_B, 1)).astype(
-        np.int32)
-    return prompt, dec
+    prompt = rng.integers(0, cfg.vocab_size, (SERVE_B, s)).astype(np.int32)
+    dec = rng.integers(0, cfg.vocab_size, (n, SERVE_B, 1)).astype(np.int32)
+    return {"tokens": prompt, **frontend_stub(cfg, SERVE_B, rng)}, dec
 
 
 # -- programs ------------------------------------------------------------------
@@ -360,6 +390,84 @@ def serve_12(rank, world, workdir, ref_path):
                                  else single[0], local_slots=slots)
     return out
 
+
+def _local_state_shapes(cfg, mesh) -> dict:
+    """{block key: {leaf: local shape}} of the first stack of a cache
+    placed by the serve rules on ``mesh`` (SERVE_B x SERVE_MAX)."""
+    from repro_torch.train import serve
+    cache = serve.place_cache(cfg, serve.serve_rules(mesh), SERVE_B,
+                              SERVE_MAX)
+
+    def shapes(blk):
+        return {k: shapes(v) if isinstance(v, dict) else
+                tuple(v.to_local().shape) for k, v in blk.items()}
+
+    return shapes(cache["stacks"][0])
+
+
+def _family_serves(cfg, arch, init, mesh, name, rank) -> dict:
+    """The serve steps of ``arch`` on ``mesh`` (and on one device, rank 0),
+    and for the hybrid the ring past its wrap, keyed (arch, name) and
+    (arch, name + "_ring")."""
+    out = {}
+    cases = [("", SERVE_S, SERVE_N)]
+    if arch == RING_ARCH:
+        cases.append(("_ring", RING_PROMPT, RING_STEPS))
+    for tag, s, n in cases:
+        prompt, dec = serve_inputs(cfg, s, n)
+        single = _serve(cfg, init, prompt, dec)[0] if rank == 0 else None
+        got, slots = _serve(cfg, init, prompt, dec, mesh=mesh)
+        out[(arch, name + tag)] = dict(mesh=got, single=single,
+                                       local_slots=slots)
+    out[(arch, name)]["local_state"] = _local_state_shapes(cfg, mesh)
+    return out
+
+
+def family_suite(rank, world, workdir, ref_path):
+    """World 8, mesh (2,2,2): for each of FAMILY_ARCHS the sharded train
+    step (TRAIN_STEPS, direct routing) against one device, saved as a
+    checkpoint for the reference; the serve steps, and the hybrid's ring
+    past its wrap, against one device."""
+    from repro_torch.ckpt.checkpoint import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    ref = dict(np.load(ref_path))
+    out: dict = {"train": {}, "serve": {}}
+    m222 = make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+    t0 = time.perf_counter()
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        init = ref_params(ref, arch, cfg)
+        gmin: list = []
+        single = _train(cfg, init, TRAIN_STEPS, grads=gmin) \
+            if rank == 0 else None
+        losses, p, _ = _train(cfg, init, TRAIN_STEPS, mesh=m222)
+        save_checkpoint(str(Path(workdir) / f"ckpt_{arch}"), TRAIN_STEPS,
+                        {"params": p})
+        p = _full(p)
+        if rank == 0:
+            out["train"][arch] = dict(
+                mesh=losses, single=single[0], params=p,
+                single_params=single[1], grad_min=gmin, lr=_ocfg().lr)
+        out["serve"].update(_family_serves(cfg, arch, init, m222, "222",
+                                           rank))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def family_serve_12(rank, world, workdir, ref_path):
+    """World 2: the serve steps of FAMILY_ARCHS on (1,2) ("data",
+    "model"), and the hybrid's ring past its wrap."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    ref = dict(np.load(ref_path))
+    m12 = make_mesh((1, 2), ("data", "model"), device="cpu")
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        out.update(_family_serves(cfg, arch, ref_params(ref, arch, cfg), m12,
+                                  "12", rank))
+    return out
 
 
 def card_check(rank, world, workdir):
