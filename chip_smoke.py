@@ -2430,6 +2430,36 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+class split_calls:
+    """Counts, while the block runs, the model axis's compute splits that
+    the mesh's steps go through (one model rank at world 1 runs the same
+    code): ``seq_gathers``, attention's gathers along the sequence (k, v
+    and the sublayer's output, ``lm._seq_gather``); ``expert_splits``, MoE
+    layers whose routed experts the rules split (``lm._moe`` with
+    ``MeshCtx.experts``)."""
+
+    def __enter__(self):
+        from repro_torch.models import lm
+        self.lm, self.n = lm, dict(seq_gathers=0, expert_splits=0)
+        self.saved = lm._seq_gather, lm._moe
+        gather, moe = self.saved
+
+        def seq_gather(*a, **kw):
+            self.n["seq_gathers"] += 1
+            return gather(*a, **kw)
+
+        def moe_layer(p, xn, ctx):
+            self.n["expert_splits"] += ctx.mesh is not None and \
+                ctx.mesh.experts is not None
+            return moe(p, xn, ctx)
+
+        lm._seq_gather, lm._moe = seq_gather, moe_layer
+        return self.n
+
+    def __exit__(self, *exc):
+        self.lm._seq_gather, self.lm._moe = self.saved
+
+
 def _rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) / max(
         float(want.float().abs().max()), 1e-30)
@@ -2485,9 +2515,10 @@ def mesh_check_fp32(arch, mesh, dev, strict: bool = True, overrides=None,
         mstep = make_train_step(cfg, ocfg, TrainOptions(), mesh=mesh)
         mp, ms = init_train_state(cfg, 0, mesh=mesh, rules=mstep.rules)
         got = []
-        for b in batches:
-            mp, ms, m = mstep(mp, ms, b)
-            got.append(float(m["loss"]))
+        with split_calls() as train_splits:
+            for b in batches:
+                mp, ms, m = mstep(mp, ms, b)
+                got.append(float(m["loss"]))
         del ms
         from repro_torch.ckpt.checkpoint import _flatten
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, single))
@@ -2534,21 +2565,32 @@ def mesh_check_fp32(arch, mesh, dev, strict: bool = True, overrides=None,
                 kw = dict(mesh=mesh)
             pre = serve.make_prefill_step(cfg, b, max_seq, **kw)
             de = serve.make_decode_step(cfg, b, max_seq, **kw)
-            lg, cache = pre(p, cache, inputs)
-            seq = [lg]
-            for i in range(n):
-                lg, cache = de(p, cache, toks[i])
-                seq.append(lg)
+            with split_calls() as serve_splits:
+                lg, cache = pre(p, cache, inputs)
+                seq = [lg]
+                for i in range(n):
+                    lg, cache = de(p, cache, toks[i])
+                    seq.append(lg)
             outs[kind] = [x.full_tensor() if is_dtensor(x) else x
                           for x in seq]
             del p, cache
         logit_err = max(_rel_err(a, b) for a, b in zip(outs["mesh"],
                                                        outs["single"]))
         rec.update(serve_batch=b, prompt=s, prefix=prefix, max_seq=max_seq,
-                   decode_steps=n, logits_rel_err=logit_err)
+                   decode_steps=n, logits_rel_err=logit_err,
+                   splits=dict(train=train_splits, serve=serve_splits))
         if not logit_err <= tol:
             raise AssertionError(f"mesh {arch} serve: logits differ by "
                                  f"{logit_err} of the largest")
+        # the split paths ran: sequence-parallel attention in train and
+        # prefill (every family but the ssm), the routed experts split
+        # over the model axis (moe)
+        want = dict(seq_gathers=cfg.family != "ssm",
+                    expert_splits=cfg.family == "moe")
+        for mode, n_calls in rec["splits"].items():
+            if any(bool(n_calls[k]) != v for k, v in want.items()):
+                raise AssertionError(f"mesh {arch} {mode}: split calls "
+                                     f"{n_calls}, want {want}")
     torch.cuda.synchronize()
     rec.update(seconds=time.perf_counter() - t0,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -2919,6 +2961,9 @@ DRYRUN_CELL_TIMEOUT_S = 600
 # 60 cells of 2-50 s of fake dispatch each took 198-241 s on an H100
 # host's 8 cores, not the 120 s first aimed at
 DRYRUN_LIMIT_S = 300.0
+# every cell's counts before the model axis split the routed experts and
+# attention's queries (commit caa8bce's dry-run on fake tensors)
+DRYRUN_BASELINE = ROOT / "chip_smoke_dryrun_baseline.json"
 
 
 def dryrun_phase(out_dir: Path) -> dict:
@@ -2980,9 +3025,34 @@ def dryrun_phase(out_dir: Path) -> dict:
         useful_flops_frac={f"{r['arch']}/{r['shape']}@{r['mesh']}":
                            r["useful_flops_frac"] for r in ok})
     print(f"dryrun {json.dumps(summary)}")
+    # each cell beside its counts before the model axis split the routed
+    # experts and attention's queries (DRYRUN_BASELINE): a cell whose
+    # useful fraction fell fails the run
+    base = json.loads(DRYRUN_BASELINE.read_text())["cells"]
+    fell = []
+    for r in ok:
+        key = f"{r['arch']}/{r['shape']}@{r['mesh']}"
+        was = base.get(key)
+        cell = dict(cell=key, useful=r["useful_flops_frac"],
+                    useful_before=was and was["useful_flops_frac"],
+                    coll_gb=sum(r["coll_bytes"].values()) / 1e9,
+                    coll_gb_before=was and was["coll_bytes"] / 1e9,
+                    tflop=r["flops"] / 1e12,
+                    tflop_before=was and was["flops"] / 1e12)
+        if was:
+            cell["useful_x"] = r["useful_flops_frac"] / was[
+                "useful_flops_frac"]
+            if r["useful_flops_frac"] < was["useful_flops_frac"]:
+                fell.append(key)
+        print(f"dryrun_cell {json.dumps(cell)}")
+    summary["below_baseline"] = fell
     if bad:
         raise AssertionError(f"dry-run: {len(bad)} cells failed, the first "
                              f"{bad[0][:3]}:\n{bad[0][3]}")
+    if fell or len(ok) != len(base):
+        raise AssertionError(f"dry-run: {len(ok)} cells counted against "
+                             f"{len(base)} before; useful fraction fell "
+                             f"in {fell}")
     if seconds > DRYRUN_LIMIT_S:
         print(f"dryrun: the phase took {seconds:.1f} s, more than its "
               f"{DRYRUN_LIMIT_S} s budget", file=sys.stderr)

@@ -27,15 +27,27 @@ reference: inputs carry precomputed frame or patch embeddings.
 On a mesh (DTensor params under ``parallel.sharding.use_rules``; every
 family) the residual between layers and the logits are DTensors placed by
 the rules at the reference's ``shard_act`` sites; each layer runs the
-single-device blocks on this rank's batch rows (``_mesh_layer``): the MLP
-and the MoE's shared experts split over the model axis where the rules
-split ``ff`` (column-parallel in, row-parallel out, the paper's Alg. 2),
-the other params gathered whole, MoE dispatch over every rank's rows, a
-decode attention on this rank's slice of a KV cache split along its slots
-(the hybrid's ring too), merged across the model axis by log-sum-exp
-(``_decode_kv_shard``), and recurrent states that the rules split along
-their channels gathered whole for the layer and written back to this
-rank's slice (``_state_whole``).  The frontends run on this rank's rows:
+single-device blocks on this rank's batch rows (``_mesh_layer``), with the
+model axis's compute split as the rules place it:
+
+* the MLP and the MoE's shared experts over ``ff`` (column-parallel in,
+  row-parallel out, the paper's Alg. 2);
+* the routed experts over ``experts`` (train: this rank's E / model
+  experts' capacity buffers) or ``expert_ff`` (serve: every expert's
+  columns), each rank dispatching only the groups of its own rows
+  (``_moe``);
+* train and prefill attention over ``seq`` (sequence parallel, direct
+  routing): this rank's slice of the positions is normed, projected and
+  attends every position's k and v, gathered over the model axis; the
+  sublayer's output is gathered whole for the MLP or MoE that follows;
+* a decode attention on this rank's slice of a KV cache split along its
+  slots (the hybrid's ring too), merged across the model axis by
+  log-sum-exp (``_decode_kv_shard``).
+
+The other params are gathered whole, and recurrent states that the rules
+split along their channels are gathered whole for the layer and written
+back to this rank's slice (``_state_whole``).  Every split runs alike on
+a model axis of one.  The frontends run on this rank's rows:
 the audio encoder as a stack of mesh layers, the vlm's patch projection.
 ``abstract_model`` and ``model_spec_tree`` give the rules their shapes and
 names.
@@ -70,7 +82,8 @@ from ..nn.attention import NEG_INF, gqa_attention, update_cache
 from ..nn.layers import (ParamDef, abstract_params, apply_norm, apply_rope,
                          gelu, init_params, leaves, map_defs, norm_defs,
                          rmsnorm, spec_tree, swish, torch_dtype)
-from ..nn.moe import _shared_ffn, moe_defs, moe_ffn
+from ..nn.moe import (_shared_ffn, group_size, group_tokens, moe_defs,
+                      moe_ffn, routed_experts)
 from ..parallel import sharding as sh
 from ..parallel.sharding import shard_act
 from ..nn.recurrent import (causal_conv1d, mlstm_defs, mlstm_sequence,
@@ -253,6 +266,24 @@ class MeshCtx:
     # the model axis's mesh dim when the rules split the MLP's ff over it
     # (``act_ff``: direct routing), else None
     ff_dim: int | None = None
+    # the model axis's mesh dim when the rules put ``seq`` on it (direct
+    # routing, sequence parallel): train and prefill attention split their
+    # queries by position over it; else None
+    seq_dim: int | None = None
+    # (the model axis's mesh dim, "experts" | "expert_ff") when the rules
+    # split the routed experts' params over it (``experts`` in train,
+    # ``expert_ff`` in serve), else None
+    experts: tuple[int, str] | None = None
+
+    def parted(self, dim: int) -> tuple:
+        """The gradient placements of a gathered param whose gradient is a
+        part on each rank of mesh dim ``dim`` too (``Partial`` there): an
+        attention sublayer's under a sequence split, whose model ranks each
+        see a slice of the positions; the router's where they each combine
+        their own experts."""
+        from torch.distributed.tensor import Partial
+        return tuple(Partial() if d == dim else p
+                     for d, p in enumerate(self.grad))
 
 
 @dataclasses.dataclass
@@ -266,6 +297,16 @@ class Ctx:
     # decode: (B,) int32 lengths by valid-slot count, made once a step
     lengths: dict = dataclasses.field(default_factory=dict)
     mesh: MeshCtx | None = None    # a mesh forward's layout
+    # a mesh forward's slice [s0, s1) of the positions on this rank where
+    # the model axis splits attention's queries (``MeshCtx.seq_dim``)
+    seq: tuple[int, int] | None = None
+
+    @property
+    def q_pos(self) -> torch.Tensor:
+        """The positions of this rank's queries: all, or ``seq``'s."""
+        if self.seq is None:
+            return self.positions
+        return self.positions[:, self.seq[0]:self.seq[1]]
 
     def lengths_of(self, n: int) -> torch.Tensor:
         if n not in self.lengths:
@@ -315,8 +356,8 @@ def _project_qkv(p, xn, ctx: Ctx):
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
     if cfg.rope_theta > 0:
-        q = apply_rope(q, ctx.positions, cfg.rope_theta)
-        k = apply_rope(k, ctx.positions, cfg.rope_theta)
+        q = apply_rope(q, ctx.q_pos, cfg.rope_theta)
+        k = apply_rope(k, ctx.q_pos, cfg.rope_theta)
     qn, kn = _attn_act_names(ctx.mode)
     return shard_act(q, qn), shard_act(k, kn), shard_act(v, kn)
 
@@ -336,21 +377,26 @@ def _cross_attn(p, xn, ctx: Ctx, cache):
         cache["v"].copy_(v)
     kv_pos = torch.arange(k.shape[1], dtype=torch.int32,
                           device=k.device)[None].expand(k.shape[:2])
-    return gqa_attention(q, k, v, q_pos=ctx.positions, kv_pos=kv_pos,
+    return gqa_attention(q, k, v, q_pos=ctx.q_pos, kv_pos=kv_pos,
                          causal=False, chunk=ctx.cfg.attn_chunk)
 
 
 def _self_attn(p, xn, ctx: Ctx, cache, local_window: int):
     """Self-attention; writes the layer's ``cache`` (views into the
-    stacked cache) in place."""
+    stacked cache) in place.  Under a sequence split (``ctx.seq``) ``xn``
+    is this rank's slice of the positions: its queries attend every
+    position's k and v, gathered over the model axis."""
     cfg = ctx.cfg
     s = xn.shape[1]
     q, k, v = _project_qkv(p, xn, ctx)
+    if ctx.seq is not None:
+        k, v = _seq_gather(k, ctx, parted=True), _seq_gather(v, ctx,
+                                                             parted=True)
     if ctx.mesh is not None and cache is not None:
         if ctx.mode == "decode":
             return _decode_kv_shard(q, k, v, cache, ctx, local_window)
         _prefill_kv_shard(k, v, cache, ctx, local_window)
-        return gqa_attention(q, k, v, q_pos=ctx.positions,
+        return gqa_attention(q, k, v, q_pos=ctx.q_pos,
                              kv_pos=ctx.positions, causal=ctx.causal,
                              local_window=local_window, chunk=cfg.attn_chunk)
     if ctx.mode == "decode":
@@ -362,7 +408,7 @@ def _self_attn(p, xn, ctx: Ctx, cache, local_window: int):
         cache["kv_pos"][slot:slot + 1].fill_(ctx.pos)
         return flash_decode(q, cache["k"], cache["v"],
                             ctx.lengths_of(min(ctx.pos + 1, w)))
-    out = gqa_attention(q, k, v, q_pos=ctx.positions, kv_pos=ctx.positions,
+    out = gqa_attention(q, k, v, q_pos=ctx.q_pos, kv_pos=ctx.positions,
                         causal=ctx.causal, local_window=local_window,
                         chunk=cfg.attn_chunk)
     if cache is not None:   # prefill: persist (the window of) kv
@@ -455,13 +501,13 @@ def _decode_kv_shard(q, k, v, cache, ctx: Ctx, local_window: int = 0):
 
 def _apply_attn(p, x, ctx: Ctx, cache, *, local_window: int = 0,
                 cross: bool = False):
-    """Self- or cross-attention sublayer.  Returns x + attention output."""
-    b, s, d = x.shape
+    """Self- or cross-attention sublayer.  Returns x + attention output
+    (a sequence split's slice of it may hold no position)."""
     xn = apply_norm(x, p["ln"], ctx.cfg.norm, 1e-6)
     out = _cross_attn(p, xn, ctx, cache) if cross else \
         _self_attn(p, xn, ctx, cache, local_window)
-    proj = out.to(x.dtype).reshape(b, s, -1) @ \
-        p["wo"].reshape(-1, d).to(x.dtype)
+    proj = out.to(x.dtype).flatten(2) @ \
+        p["wo"].reshape(-1, x.shape[-1]).to(x.dtype)
     return x + proj
 
 
@@ -527,34 +573,71 @@ def _apply_mlstm(cell, xn, ctx: Ctx, cache):
 
 
 def _moe(p, xn, ctx: Ctx):
-    """``moe_ffn``; on a mesh over every rank's rows, gathered, since its
-    dispatch groups run over the global token order (a group may span two
-    ranks' rows, and a short batch shrinks the group), and this rank's
-    rows of the result."""
-    mc = ctx.mesh
+    """``moe_ffn``.  On a mesh: the dispatch groups that hold this rank's
+    rows' tokens, of every rank's rows gathered (groups run over the
+    global token order: one may span two ranks' rows, and a short batch
+    shrinks the group); where the rules split the routed experts over the
+    model axis (``MeshCtx.experts``), this rank's experts (train) or
+    columns of each (serve) alone, and the shared experts on their slice
+    of ff as the MLP; the parts summed over the model axis; this rank's
+    rows of the result.  The router runs whole on every model rank, but
+    its gradient there, through the combine weights of this rank's
+    experts, is a part too."""
+    mc, cfg = ctx.mesh, ctx.cfg
     if mc is None:
-        return moe_ffn(p, xn, ctx.cfg)
-    from torch.distributed.tensor import DTensor, Replicate
-    full = DTensor.from_local(xn, mc.mesh, mc.rows, run_check=False,
-                              shape=(mc.batch, *xn.shape[1:]),
-                              stride=_strides((mc.batch, *xn.shape[1:])))
-    full = sh.replicated(full, mc.grad)
-    cfg = ctx.cfg
-    split = cfg.n_shared_experts and mc.ff_dim is not None and \
-        p["shared_wi"].shape[-1] != cfg.moe_d_ff * cfg.n_shared_experts
-    if not split:
-        out = moe_ffn(p, full, cfg)
+        return moe_ffn(p, xn, cfg)
+    from torch.distributed.tensor import Replicate
+    full = sh.replicated(_from_rows(xn, mc), mc.grad)
+    b, s, d = full.shape
+    t = b * s
+    gs = group_size(cfg, t)
+    r0, r1 = mc.row_range
+    g0, g1 = r0 * s // gs, -(-r1 * s // gs)
+    xt = group_tokens(full.reshape(t, d)[g0 * gs:min(g1 * gs, t)], gs)
+    whole = (Replicate(),) * mc.mesh.ndim
+    e_dim, experts = mc.experts or (None, None)
+    if experts == "experts":
+        n = p["wi"].shape[0]
+        e0 = mc.mesh.get_local_rank(e_dim) * n
+        experts = (e0, e0 + n)
     else:
-        # the shared experts split over the model axis as the MLP is; the
-        # routed experts on the gathered params
-        out = moe_ffn({k: v for k, v in p.items()
-                       if not k.startswith("shared_")}, full,
-                      dataclasses.replace(cfg, n_shared_experts=0))
-        whole = (Replicate(),) * mc.mesh.ndim
-        xs = sh.grads_summed(full, mc.mesh, whole, mc.ff_dim)
-        out = out + sh.summed(_shared_ffn(p, xs), mc.mesh, whole,
-                              mc.ff_dim)
-    return out[mc.row_range[0]:mc.row_range[1]]
+        experts = None
+    sff = cfg.moe_d_ff * cfg.n_shared_experts
+    ff_dim = mc.ff_dim if sff and mc.ff_dim is not None and \
+        sff % mc.mesh.size(mc.ff_dim) == 0 else None
+
+    def parts(dim):
+        """xt, its gradient summed over mesh dim ``dim``, whose ranks each
+        take a part of the work."""
+        return xt if dim is None else sh.grads_summed(xt, mc.mesh, whole,
+                                                      dim)
+
+    xe = parts(e_dim)
+    xs = xe if ff_dim == e_dim else parts(ff_dim)
+
+    def summed(y, dim):
+        return y if dim is None else sh.summed(y, mc.mesh, whole, dim)
+
+    out = routed_experts(p, xe, cfg, t, first=g0, experts=experts)
+    if not cfg.n_shared_experts:
+        out = summed(out, e_dim)
+    elif ff_dim == e_dim:
+        out = summed(out + _shared_ffn(p, xs), e_dim)
+    else:
+        out = summed(out, e_dim) + summed(_shared_ffn(p, xs), ff_dim)
+    out = out.reshape(-1, d)[r0 * s - g0 * gs:r1 * s - g0 * gs]
+    return out.view(r1 - r0, s, d)
+
+
+# block kinds that open with attention: under a sequence split they take
+# this rank's slice of the positions and gather their output whole
+_SEQ_KINDS = ("attn", "enc_attn", "xattn", "moe")
+
+
+def _seq_whole(x, ctx: Ctx):
+    """An attention sublayer's output: whole along the sequence for the
+    MLP or MoE that follows (``_seq_gather``)."""
+    return x if ctx.seq is None else _seq_gather(x, ctx)
 
 
 def apply_block(kind: str, p, x, ctx: Ctx, cache):
@@ -564,15 +647,15 @@ def apply_block(kind: str, p, x, ctx: Ctx, cache):
         lw = cfg.local_window if (kind == "attn"
                                   and cfg.family == "hybrid") else 0
         x = _apply_attn(p["attn"], x, ctx, cache, local_window=lw)
-        return _apply_mlp(p["mlp"], x, ctx)
+        return _apply_mlp(p["mlp"], _seq_whole(x, ctx), ctx)
     if kind == "xattn":
         x = _apply_attn(p["attn"], x, ctx,
                         None if cache is None else cache["self"])
         x = _apply_attn(p["xa"], x, ctx,
                         None if cache is None else cache["cross"], cross=True)
-        return _apply_mlp(p["mlp"], x, ctx)
+        return _apply_mlp(p["mlp"], _seq_whole(x, ctx), ctx)
     if kind == "moe":
-        x = _apply_attn(p["attn"], x, ctx, cache)
+        x = _seq_whole(_apply_attn(p["attn"], x, ctx, cache), ctx)
         xn = apply_norm(x, p["moe_ln"], cfg.norm, 1e-6)
         return x + _moe(p["moe"], xn, ctx).to(x.dtype)
     xn = apply_norm(x, p["ln"], cfg.norm, 1e-6)
@@ -750,37 +833,115 @@ def _rows(x, mc: MeshCtx):
     return x.redistribute(mc.mesh, mc.rows).to_local()
 
 
-def _layer_param(t, layer: int, mc: MeshCtx, split: bool = False):
+def _layer_param(t, layer: int, mc: MeshCtx, keep: int | None = None,
+                 grad=None):
     """Layer ``layer`` of a stacked param on this rank: gathered from its
-    shards (its gradient returns as ``mc.grad`` says), but with ``split``
-    left in its model-axis slice."""
+    shards (its gradient returns as ``grad`` says, by default
+    ``mc.grad``), but left in its slice along mesh dim ``keep``."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
+    grad = list(mc.grad if grad is None else grad)
     place = [Shard(p.dim - 1) if isinstance(p, Shard) else p
              for p in t.placements]
     sl = DTensor.from_local(t.to_local()[layer], t.device_mesh, place,
                             run_check=False, shape=t.shape[1:],
                             stride=_strides(t.shape[1:]))
-    if not split or mc.ff_dim is None:
-        return sh.replicated(sl, mc.grad)
+    if keep is None:
+        return sh.replicated(sl, tuple(grad))
     want = [Replicate()] * len(place)
-    grad = list(mc.grad)
-    want[mc.ff_dim] = grad[mc.ff_dim] = place[mc.ff_dim]
+    want[keep] = grad[keep] = place[keep]
     return sl.redistribute(t.device_mesh, want).to_local(
         grad_placements=grad)
 
 
-# the leaves a mesh layer keeps in their model-axis slice (ff over model):
-# the MLP's, and the MoE's shared experts'
+# the leaves a mesh layer keeps in their model-axis slice of ff (where the
+# rules split ``act_ff``): the MLP's, and the MoE's shared experts'
 _FF_SPLIT = {"mlp": ("wi", "wg", "wo"),
              "moe": ("shared_wi", "shared_wg", "shared_wo")}
+# the routed experts' leaves, kept in their slice where ``MeshCtx.experts``
+_EXPERTS_SPLIT = ("wi", "wg", "wo")
+# the attention sublayers, whose gradients a sequence split makes parts
+_ATTN_SUBLAYERS = ("attn", "xa")
 
 
-def _gather_block(tree: dict, layer: int, mc: MeshCtx, split=()) -> dict:
-    """A block's layer-``layer`` params on this rank (``_layer_param``);
-    the leaves ``_FF_SPLIT`` names stay in their model-axis slice."""
-    return {k: _gather_block(v, layer, mc, _FF_SPLIT.get(k, ()))
-            if isinstance(v, dict) else _layer_param(v, layer, mc, k in split)
-            for k, v in tree.items()}
+def _kept(name: str, mc: MeshCtx) -> dict:
+    """{leaf: mesh dim} of a block's subtree ``name`` that stay in their
+    model-axis slice."""
+    out = {}
+    if mc.ff_dim is not None:
+        out.update(dict.fromkeys(_FF_SPLIT.get(name, ()), mc.ff_dim))
+    if name == "moe" and mc.experts is not None:
+        out.update(dict.fromkeys(_EXPERTS_SPLIT, mc.experts[0]))
+    return out
+
+
+def _gather_block(tree: dict, layer: int, mc: MeshCtx, seq: bool = False,
+                  keep=None, grad=None) -> dict:
+    """A block's layer-``layer`` params on this rank (``_layer_param``):
+    the leaves ``_kept`` names stay in their model-axis slice.  Their
+    gradients return as ``grad`` says (default ``mc.grad``), and as parts
+    summed over the model axis too (``MeshCtx.parted``) for an attention
+    sublayer under a sequence split (``seq``) and for the router where the
+    model axis splits the routed experts."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            sub = mc.parted(mc.seq_dim) if seq and k in _ATTN_SUBLAYERS \
+                else grad
+            out[k] = _gather_block(v, layer, mc, seq, _kept(k, mc), sub)
+        else:
+            g = mc.parted(mc.experts[0]) if k == "router" and mc.experts \
+                else grad
+            out[k] = _layer_param(v, layer, mc, (keep or {}).get(k), g)
+    return out
+
+
+def _seq_range(n: int, mc: MeshCtx) -> tuple[int, int]:
+    """[s0, s1) of an ``n``-long sequence on this rank where the model axis
+    splits it: ``torch.chunk``'s split, as DTensor's ``Shard`` takes it
+    (uneven: the last ranks hold less, or nothing)."""
+    m = mc.mesh.size(mc.seq_dim)
+    c = -(-n // m)
+    s0 = min(mc.mesh.get_local_rank(mc.seq_dim) * c, n)
+    return s0, min(s0 + c, n)
+
+
+def _seq_place(mc: MeshCtx) -> tuple:
+    """Placements of a (B, S, ...) activation split by rows and along S
+    over the model axis."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(1) if d == mc.seq_dim else p
+                 for d, p in enumerate(mc.rows))
+
+
+def _seq_gather(t, ctx: Ctx, parted: bool = False):
+    """This rank's slice ``t`` (rows, s1 - s0, ...) of the positions,
+    all-gathered whole along them over the model axis.  Its gradient comes
+    back as this rank's slice of one that every model rank holds alike,
+    or, ``parted`` (k and v, which each rank's own queries attend), as the
+    sum over the model ranks of theirs (a reduce-scatter)."""
+    from torch.distributed.tensor import DTensor, Partial
+    mc = ctx.mesh
+    shape = (mc.batch, ctx.positions.shape[1], *t.shape[2:])
+    dt = DTensor.from_local(t, mc.mesh, _seq_place(mc), run_check=False,
+                            shape=shape, stride=_strides(shape))
+    grad = tuple(Partial() if d == mc.seq_dim else p
+                 for d, p in enumerate(mc.rows)) if parted else None
+    return dt.redistribute(mc.mesh, mc.rows).to_local(grad_placements=grad)
+
+
+def _block_input(h, kind: str, ctx: Ctx):
+    """A block's input on this rank, from the layer's DTensor input or the
+    previous block's whole rows: this rank's rows, and under a sequence
+    split an attention block's slice of the positions (its gradient
+    gathered back whole)."""
+    mc = ctx.mesh
+    sliced = ctx.seq is not None and kind in _SEQ_KINDS
+    if not sh.is_dtensor(h):
+        if not sliced:
+            return h
+        h = _from_rows(h, mc)
+    return h.redistribute(mc.mesh, _seq_place(mc) if sliced
+                          else mc.rows).to_local()
 
 
 # block kinds whose cache is recurrent state (the rest hold attention caches)
@@ -826,16 +987,19 @@ def _state_whole(blk: dict, layer: int, mc: MeshCtx):
 
 def _mesh_layer(x, layer: int, stack_params, stack_cache, pattern,
                 ctx: Ctx):
-    """One layer of a stack on a mesh: this rank's rows of ``x`` and the
-    layer's params (``_gather_block``), the pattern's blocks applied to
-    them with the single-device code (attention caches through this rank's
-    local shards, recurrent states whole along their channels,
-    ``_state_whole``), and the rows back as a DTensor."""
+    """One layer of a stack on a mesh: this rank's rows of ``x`` (an
+    attention block's slice of the positions under a sequence split,
+    ``_block_input``) and the layer's params (``_gather_block``), the
+    pattern's blocks applied to them with the single-device code
+    (attention caches through this rank's local shards, recurrent states
+    whole along their channels, ``_state_whole``), and the rows back as a
+    DTensor."""
     mc = ctx.mesh
-    h = _rows(x, mc)
+    h = x
     for i, kind in enumerate(pattern):
         key = f"{i}_{kind}"
-        gp = _gather_block(stack_params[key], layer, mc)
+        h = _block_input(h, kind, ctx)
+        gp = _gather_block(stack_params[key], layer, mc, ctx.seq is not None)
         bc, write_back = None, None
         if stack_cache is not None and kind in _RECURRENT:
             bc, write_back = _state_whole(stack_cache[key], layer, mc)
@@ -872,11 +1036,36 @@ def _mesh_ctx(rules, cfg: ModelConfig, b: int, cache) -> MeshCtx:
                 kv = (mesh.get_group(d), mesh.size(d),
                       mesh.get_local_rank(d))
     names = tuple(mesh.mesh_dim_names)
-    ff_dim = names.index("model") if rules.rules.get("act_ff") == "model" \
-        else None
+    model = names.index("model") if "model" in names else None
+    r = rules.rules
+
+    def on_model(name):
+        return model if model is not None and r.get(name) == "model" \
+            else None
+
+    experts = None
+    if cfg.n_experts and "model" in (r.get("act_experts"),
+                                     r.get("expert_ff")):
+        # the params' own split (``fit_spec``: a dim the axis does not
+        # divide stays whole)
+        spec = rules.fit_spec(("experts", "embed", "expert_ff"),
+                              (cfg.n_experts, cfg.d_model, cfg.moe_d_ff))
+        for name, axes in zip(("experts", None, "expert_ff"), spec):
+            if name and axes and "model" in axes:
+                experts = (model, name)
     return MeshCtx(rules=rules, mesh=mesh, batch=b, rows=rows,
                    row_range=sh.row_range(b, mesh, rows),
-                   grad=sh.partial_over(rows), kv=kv, ff_dim=ff_dim)
+                   grad=sh.partial_over(rows), kv=kv,
+                   ff_dim=on_model("act_ff"), seq_dim=on_model("seq"),
+                   experts=experts)
+
+
+def _seq_of(n: int, mc: MeshCtx, mode: str) -> tuple[int, int] | None:
+    """This rank's slice of ``n`` positions where the model axis splits
+    attention by sequence (train and prefill), else None."""
+    if mc.seq_dim is None or mode == "decode":
+        return None
+    return _seq_range(n, mc)
 
 
 def _mesh_forward(params, inputs: dict, cfg: ModelConfig, mode: str,
@@ -918,12 +1107,16 @@ def _mesh_forward(params, inputs: dict, cfg: ModelConfig, mode: str,
             r1 - r0, f)
         xe = _from_rows(frames + _sinusoid(fpos, d).to(dt), mc)
         ectx = Ctx(cfg=cfg, mode="train", positions=fpos, causal=False,
-                   mesh=mc)
+                   mesh=mc, seq=_seq_of(f, mc, "train"))
         xe = _run_stacks(params["encoder"], xe, ectx, None,
                          [(("enc_attn",), cfg.n_encoder_layers)])
         enc_out = apply_norm(_rows(xe, mc),
                              gathered(params["encoder"]["out_ln"]), cfg.norm,
                              1e-6)
+        if mc.seq_dim is not None:
+            # each model rank's queries attend the whole encoder output:
+            # its gradient is the sum of theirs
+            enc_out = sh.grads_summed(enc_out, mc.mesh, mc.rows, mc.seq_dim)
     pos0 = int(cache["pos"]) if mode == "decode" else 0
     if mode == "decode":
         positions = torch.full((r1 - r0, 1), pos0, dtype=torch.int32,
@@ -935,7 +1128,7 @@ def _mesh_forward(params, inputs: dict, cfg: ModelConfig, mode: str,
         x = x + _sinusoid(positions, d).to(dt)
     x = shard_act(_from_rows(x, mc), ("batch", "seq", "act_embed"))
     ctx = Ctx(cfg=cfg, mode=mode, positions=positions, pos=pos0,
-              enc_out=enc_out, mesh=mc)
+              enc_out=enc_out, mesh=mc, seq=_seq_of(x.shape[1], mc, mode))
     x = _run_stacks(params, x, ctx, cache if mode != "train" else None,
                     pattern_stacks(cfg))
     if mode == "train":

@@ -10,7 +10,6 @@ back to the input's dtype, as the reference does.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 
 import numpy as np
@@ -172,12 +171,24 @@ def rope_frequencies(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
-@functools.lru_cache(maxsize=None)
+_ROPE_FREQS: dict = {}
+
+
 def _rope_freqs(head_dim: int, theta: float, device: torch.device):
-    # made once per device: a host-to-device copy per layer would make the
-    # host wait on the card in every decode step
-    return torch.as_tensor(rope_frequencies(head_dim, theta),
-                           dtype=torch.float32, device=device)
+    """The RoPE frequencies, made once per device: a host-to-device copy
+    per layer would make the host wait on the card in every decode step.
+    One made under a fake-tensor mode (the dry-run's counting) is not
+    kept: a fake tensor outlives its mode and turns every later
+    computation that meets it into fake tensors."""
+    key = (head_dim, theta, device)
+    out = _ROPE_FREQS.get(key)
+    if out is None:
+        from torch._subclasses.fake_tensor import FakeTensor
+        out = torch.as_tensor(rope_frequencies(head_dim, theta),
+                              dtype=torch.float32, device=device)
+        if not isinstance(out, FakeTensor):
+            _ROPE_FREQS[key] = out
+    return out
 
 
 def apply_rope(x, positions, theta: float):

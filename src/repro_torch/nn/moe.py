@@ -14,6 +14,14 @@ and the rest are dropped (their residual carries them), as in the
 reference.  The capacity is host arithmetic on static shapes, and routing
 uses only ``topk``, ``cumsum``, comparisons, ``scatter`` and ``gather``:
 nothing here makes the host wait on the card.
+
+On a mesh (``models/lm.py::_moe``) a rank dispatches only the groups that
+hold its own rows' tokens (``route``'s ``first``), and where the rules put
+the model axis on the routed experts (train: ``experts``) it builds and
+runs the capacity buffers of its own experts alone (``routed_experts``'
+``experts``); where they split each expert's hidden dim (serve:
+``expert_ff``) every expert runs on this rank's columns.  Either way the
+rank's output is a part, summed over the model axis.
 """
 from __future__ import annotations
 
@@ -72,15 +80,33 @@ def capacity(cfg, group_size: int) -> int:
                    * cfg.capacity_factor), 1)
 
 
-def route(p, xt, cfg, t: int):
-    """Routing of the grouped tokens xt (ng, gs, d), of which the first
-    ``t`` are real.  Returns (weights (ng, gs, k) float32, zero where
-    dropped; idx (ng, gs, k); pos_tok (ng, gs, k), each choice's slot in
-    its expert; keep (ng, gs, k) bool; cap)."""
+def group_size(cfg, t: int) -> int:
+    """Tokens of a dispatch group when ``t`` tokens are dispatched (a short
+    batch shrinks the group)."""
+    return min(cfg.moe_group_size, t)
+
+
+def group_tokens(xf, gs: int):
+    """Tokens xf (n, d) as (ceil(n / gs), gs, d) groups, the last padded
+    with zeros."""
+    n, d = xf.shape
+    pad = (-n) % gs
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, d))], dim=0)
+    return xf.view(-1, gs, d)
+
+
+def route(p, xt, cfg, t: int, first: int = 0):
+    """Routing of the grouped tokens xt (ng, gs, d): groups ``first`` ..
+    ``first + ng`` of the global token order, whose first ``t`` tokens are
+    real.  Returns (weights (ng, gs, k) float32, zero where dropped; idx
+    (ng, gs, k); pos_tok (ng, gs, k), each choice's slot in its expert;
+    keep (ng, gs, k) bool; cap)."""
     ng, gs, _ = xt.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = capacity(cfg, gs)
-    valid = (torch.arange(ng * gs, device=xt.device) < t).view(ng, gs)
+    valid = (torch.arange(first * gs, (first + ng) * gs, device=xt.device)
+             < t).view(ng, gs)
     logits = torch.einsum("gsd,de->gse", xt, p["router"])
     weights, idx = _top_k_routing(logits.reshape(ng * gs, e), k)
     weights = weights.view(ng, gs, k) * valid[..., None]
@@ -97,27 +123,25 @@ def route(p, xt, cfg, t: int):
     return weights * keep, idx, pos_tok, keep, cap
 
 
-def moe_ffn(p, x, cfg):
-    """x: (B, S, d) -> (B, S, d).  Groups of ``moe_group_size`` tokens are
-    dispatched independently (bounds the dispatch tensor)."""
-    b, s, d = x.shape
-    t = b * s
-    gs = min(cfg.moe_group_size, t)
-    pad = (-t) % gs
-    xf = x.reshape(t, d)
-    if pad:
-        xf = torch.cat([xf, xf.new_zeros((pad, d))], dim=0)
-    ng = (t + pad) // gs
-    xt = shard_act(xf.view(ng, gs, d), ("moe_groups", None, None))
-    e = cfg.n_experts
-    weights, idx, pos_tok, keep, cap = route(p, xt, cfg, t)
-
+def routed_experts(p, xt, cfg, t: int, *, first: int = 0, experts=None):
+    """The routed experts' output (ng, gs, d) of the grouped tokens xt
+    (``route``'s ``first`` and ``t``).  ``experts`` = (e0, e1): ``p``'s
+    ``wi``/``wg``/``wo`` hold experts e0..e1 alone, so only their capacity
+    buffers are built and run and only the choices routed to them
+    combined: a part of the output (and of the gradients of xt and the
+    router, through the combine weights)."""
+    ng, gs, d = xt.shape
+    weights, idx, pos_tok, keep, cap = route(p, xt, cfg, t, first)
+    e0, e1 = experts or (0, cfg.n_experts)
+    n = e1 - e0
+    loc = idx - e0                     # each choice's expert among e0..e1
     if cfg.moe_impl == "einsum":
         # GShard dispatch/combine one-hot products.  The reference sums
         # the (g, s, k, e, cap) product over k; a token's k choices go to
         # k distinct experts, so at most one term of each sum is nonzero
-        # and the contraction over k gives the same 0/1 table.
-        oh_e = _one_hot(idx, e, xt.dtype)
+        # and the contraction over k gives the same 0/1 table.  A choice
+        # of an expert outside e0..e1 has a row of zeros.
+        oh_e = _one_hot(loc, n, xt.dtype)
         oh_c = _one_hot(pos_tok, cap, xt.dtype) * keep[..., None]
         disp = torch.einsum("gske,gskc->gsec", oh_e, oh_c)
         disp = shard_act(disp, ("moe_groups", None, "act_experts", None))
@@ -125,35 +149,42 @@ def moe_ffn(p, x, cfg):
         ex_out = _expert_ffn(p, ex_in)
         comb = torch.einsum(
             "gske,gskc->gsec",
-            _one_hot(idx, e, torch.float32) * weights[..., None],
+            _one_hot(loc, n, torch.float32) * weights[..., None],
             _one_hot(pos_tok, cap, torch.float32) * keep[..., None])
-        out = torch.einsum("gsec,gecd->gsd", comb.to(xt.dtype), ex_out)
-    else:
-        # gather dispatch: a (g, e, cap) source-token table by scatter,
-        # then gathers.  Dropped choices write the trash slot ``cap``.
-        k = idx.shape[-1]
-        tok = torch.arange(gs, device=x.device)[None, :, None].expand(
-            ng, gs, k)
-        safe_pos = torch.where(keep, pos_tok, cap)
-        src = torch.zeros((ng, e * (cap + 1)), dtype=torch.long,
-                          device=x.device)
-        src.scatter_(1, (idx * (cap + 1) + safe_pos).view(ng, gs * k),
-                     tok.reshape(ng, gs * k))
-        src = src.view(ng, e, cap + 1)[..., :cap].reshape(ng, e * cap)
-        ex_in = torch.gather(xt, 1, src[..., None].expand(ng, e * cap, d))
-        ex_in = shard_act(ex_in.view(ng, e, cap, d),
-                          ("moe_groups", "act_experts", None, None))
-        ex_out = _expert_ffn(p, ex_in)
-        # combine: gather each token's k expert outputs from the buffer
-        slot = idx * cap + torch.clamp(pos_tok, max=cap - 1)
-        gathered = torch.gather(ex_out.reshape(ng, e * cap, d), 1,
-                                slot.view(ng, gs * k, 1).expand(-1, -1, d))
-        out = (gathered.view(ng, gs, k, d)
-               * weights[..., None].to(xt.dtype)).sum(2)
+        return torch.einsum("gsec,gecd->gsd", comb.to(xt.dtype), ex_out)
+    # gather dispatch: a (g, e, cap) source-token table by scatter, then
+    # gathers.  Dropped choices, and those of experts outside e0..e1,
+    # write the trash slot ``cap``.
+    k = idx.shape[-1]
+    mine = (loc >= 0) & (loc < n)
+    loc = torch.where(mine, loc, 0)
+    tok = torch.arange(gs, device=xt.device)[None, :, None].expand(ng, gs, k)
+    safe_pos = torch.where(keep & mine, pos_tok, cap)
+    src = torch.zeros((ng, n * (cap + 1)), dtype=torch.long, device=xt.device)
+    src.scatter_(1, (loc * (cap + 1) + safe_pos).view(ng, gs * k),
+                 tok.reshape(ng, gs * k))
+    src = src.view(ng, n, cap + 1)[..., :cap].reshape(ng, n * cap)
+    ex_in = torch.gather(xt, 1, src[..., None].expand(ng, n * cap, d))
+    ex_in = shard_act(ex_in.view(ng, n, cap, d),
+                      ("moe_groups", "act_experts", None, None))
+    ex_out = _expert_ffn(p, ex_in)
+    # combine: gather each token's k expert outputs from the buffer
+    slot = loc * cap + torch.clamp(pos_tok, max=cap - 1)
+    gathered = torch.gather(ex_out.reshape(ng, n * cap, d), 1,
+                            slot.view(ng, gs * k, 1).expand(-1, -1, d))
+    weights = torch.where(mine, weights, 0.0)
+    return (gathered.view(ng, gs, k, d)
+            * weights[..., None].to(xt.dtype)).sum(2)
 
+
+def moe_ffn(p, x, cfg):
+    """x: (B, S, d) -> (B, S, d).  Groups of ``moe_group_size`` tokens are
+    dispatched independently (bounds the dispatch tensor)."""
+    b, s, d = x.shape
+    t = b * s
+    xt = shard_act(group_tokens(x.reshape(t, d), group_size(cfg, t)),
+                   ("moe_groups", None, None))
+    out = routed_experts(p, xt, cfg, t)
     if cfg.n_shared_experts:
         out = out + _shared_ffn(p, xt)
-    out = out.reshape(-1, d)
-    if pad:
-        out = out[:t]
-    return out.reshape(b, s, d)
+    return out.reshape(-1, d)[:t].reshape(b, s, d)

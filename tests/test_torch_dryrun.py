@@ -50,6 +50,26 @@ def fake_world(world: int):
         dist.destroy_process_group()
 
 
+def test_count_step_leaves_no_fake_tensor_behind(monkeypatch):
+    """A step counted on fake tensors leaves nothing fake in the module
+    caches that later real steps read (the RoPE frequencies, made once a
+    device, here first made under the count): a real forward after the
+    count gives the logits of one with the cache emptied."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from repro_torch.models import lm
+    from repro_torch.nn import layers
+    cfg = get_config("qwen3-14b-smoke")
+    params = lm.init_model(cfg, 0, device="cpu")
+    tokens = torch.arange(24).reshape(2, 12) % cfg.vocab_size
+    monkeypatch.setattr(layers, "_ROPE_FREQS", {})
+    A.count_step(lambda p: lm.forward(p, {"tokens": tokens}, cfg), params)
+    after = lm.forward(params, {"tokens": tokens}, cfg)
+    monkeypatch.setattr(layers, "_ROPE_FREQS", {})
+    fresh = lm.forward(params, {"tokens": tokens}, cfg)
+    assert not isinstance(after, FakeTensor)
+    torch.testing.assert_close(after, fresh, rtol=0, atol=0)
+
+
 class TestRooflineReport:
     def test_terms_and_bottleneck(self):
         r = A.RooflineReport(
@@ -191,6 +211,58 @@ def test_dryrun_reduced_cells_count_multipod(arch, mode):
     assert t.coll.get("all-gather", 0) > 0
     if mode == "train":
         assert t.coll.get("reduce-scatter", 0) > 0
+
+
+def _no_expert_ffn(p, x):
+    """The experts' FFN with no matmul (its params still take a
+    gradient)."""
+    return x + 0 * sum(p[k].sum() for k in ("wi", "wg", "wo"))
+
+
+def _no_attn(p, x, ctx, cache, **kw):
+    """An attention sublayer with no matmul (its params still take a
+    gradient)."""
+    from repro_torch.nn.layers import leaves
+    return x + 0 * sum(t.sum() for t in leaves(p))
+
+
+# (arch, the sublayer whose FLOPs the model axis splits, its stand-in)
+SPLIT_SUBLAYERS = {
+    "deepseek-moe-16b": ("repro_torch.nn.moe", "_expert_ffn", _no_expert_ffn),
+    "qwen3-14b": ("repro_torch.models.lm", "_apply_attn", _no_attn),
+}
+
+
+@pytest.mark.parametrize("mode", ["train", "prefill"])
+@pytest.mark.parametrize("arch", sorted(SPLIT_SUBLAYERS))
+def test_model_axis_splits_sublayer_flops(arch, mode, monkeypatch):
+    """The FLOPs of deepseek-moe-16b-smoke's routed experts' FFN and of
+    qwen3-14b-smoke's attention sublayers (q/k/v/o and the scores), forward
+    and backward: per card of a fake (2,2,2) mesh, one device's (a
+    (1,1,1) mesh) / pod·data·model = 8, exactly, as the groups (64 tokens
+    a rank in train, 32 in prefill, of 16 a group), the experts (8 over a
+    model axis of 2) and the positions (32) divide evenly.  A sublayer's
+    FLOPs: the step's less the step's with the sublayer's matmuls taken
+    out."""
+    import importlib
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import make_mesh
+    module, name, stub = SPLIT_SUBLAYERS[arch]
+    cfg = get_config(arch + "-smoke")
+    shape = next(c for c in CELLS if c.mode == mode)
+    flops = {}
+    for world, mesh_shape in ((1, (1, 1, 1)), (8, (2, 2, 2))):
+        with fake_world(world):
+            mesh = make_mesh(mesh_shape, ("pod", "data", "model"),
+                             device="cpu")
+            step = lower_cell(cfg, shape, mesh)[0].flops
+            with monkeypatch.context() as mp:
+                mp.setattr(importlib.import_module(module), name, stub)
+                rest = lower_cell(cfg, shape, mesh)[0].flops
+        flops[world] = step - rest
+    print(f"{arch} {mode} {name}: one device {flops[1]:.6e}, a card of "
+          f"(2,2,2) {flops[8]:.6e}")
+    assert flops[8] > 0 and flops[8] * 8 == flops[1]
 
 
 def _reference_step_flops(mode: str) -> float:

@@ -174,6 +174,40 @@ def test_moe_ffn_vs_reference(arch, impl):
     assert (weights.numpy()[~keep] == 0).all()
 
 
+@pytest.mark.parametrize("impl", ["einsum", "gather"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b-smoke",
+                                  "dbrx-132b-smoke"])
+def test_routed_experts_by_groups_and_experts(arch, impl):
+    """The mesh's splits of the routed experts (``models/lm.py::_moe``):
+    groups 1..3 of 58 tokens in 4 groups of 16 (the last padded), dispatched
+    alone with ``first=1``, give those groups' rows of the whole dispatch
+    bit for bit; the experts split in two halves, each with its own
+    ``wi``/``wg``/``wo`` and the whole router, give parts that sum to the
+    whole output (float32, within 1e-6 of its largest magnitude)."""
+    cfg, jcfg = _cfgs(arch, moe_impl=impl)
+    tree = _draw(jmoe.moe_defs(jcfg), np.random.default_rng(5))
+    p = {k: torch.from_numpy(v) for k, v in tree.items()}
+    t, gs, e = 58, cfg.moe_group_size, cfg.n_experts
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (t, cfg.d_model)).astype(np.float32))
+    xt = moe.group_tokens(x, gs)
+    assert xt.shape[0] == 4
+    whole = moe.routed_experts(p, xt, cfg, t)
+    torch.testing.assert_close(
+        moe.routed_experts(p, xt[1:], cfg, t, first=1), whole[1:], rtol=0,
+        atol=0)
+    halves = []
+    for e0, e1 in ((0, e // 2), (e // 2, e)):
+        mine = {k: v[e0:e1] if k in ("wi", "wg", "wo") else v
+                for k, v in p.items()}
+        halves.append(moe.routed_experts(mine, xt, cfg, t,
+                                         experts=(e0, e1)))
+    assert all(float(h.abs().max()) > 0 for h in halves)
+    scale = float(whole.abs().max())
+    torch.testing.assert_close(halves[0] + halves[1], whole, rtol=0,
+                               atol=1e-6 * scale)
+
+
 def test_moe_impls_agree_in_bf16():
     """Both dispatch implementations route the same tokens to the same
     slots, so in bf16 they agree to the combine's rounding."""

@@ -248,6 +248,43 @@ def test_serve_steps_on_mesh(suite, serve12, ref, arch, mesh):
     assert r["local_slots"] == ranks.SERVE_MAX // 2
 
 
+@pytest.mark.parametrize("arch", ranks.ARCHS)
+def test_serve_uneven_sequence_split(serve12, arch):
+    """A prompt of SERVE_S - 1 = 15 on (1,2): prefill's positions split 8
+    and 7 over the model axis; every step's logits equal one device's."""
+    r = serve12[(arch, "12_odd")]
+    np.testing.assert_allclose(r["mesh"].numpy(), r["single"].numpy(),
+                               rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", ranks.ARCHS)
+def test_model_axis_splits_experts_and_queries(suite, arch):
+    """What each of the 8 ranks of (2,2,2) computed: under the train rules
+    every expert buffer holds E / model experts, of the dispatch groups of
+    its own 2 rows alone (64 tokens: 4 of the batch's 16 groups); under
+    the serve rules every expert's moe_d_ff / model columns (prefill's 2
+    groups of 16 tokens, decode's one of 8); each train and prefill
+    attention's queries cover S / model positions against all S keys."""
+    from repro_torch.nn.moe import capacity
+    cfg = get_config(arch)
+    m, rows = 2, ranks.TRAIN_BATCH // 4
+    rec = suite["splits"][arch]
+    assert len(rec["train"]) == len(rec["serve"]) == 8
+    e, d, ff = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    gs = cfg.moe_group_size
+    for r in rec["train"]:
+        assert r["attn"] == [(ranks.TRAIN_SEQ // m, ranks.TRAIN_SEQ, True)]
+        assert r["experts"] == ([] if not e else [(
+            (rows * ranks.TRAIN_SEQ // gs, e // m, capacity(cfg, gs), d),
+            (e // m, d, ff))])
+    for r in rec["serve"]:
+        assert r["attn"] == [(ranks.SERVE_S // m, ranks.SERVE_S, True)]
+        assert r["experts"] == ([] if not e else sorted([
+            ((rows * ranks.SERVE_S // gs, e, capacity(cfg, gs), d),
+             (e, d, ff // m)),
+            ((1, e, capacity(cfg, ranks.SERVE_B), d), (e, d, ff // m))]))
+
+
 @pytest.mark.parametrize("model", [2, 4])
 def test_lse_merge_across_ranks(suite, model):
     cases = suite["lse"][model]

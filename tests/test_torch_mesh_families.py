@@ -267,6 +267,33 @@ def test_serve_steps_on_mesh(suite, serve12, ref, arch, mesh):
             4 if mesh == "222" else 1), shape
 
 
+def _attn_calls(cfg, s: int) -> list:
+    """(queries, keys, causal) of each attention of a forward over ``s``
+    tokens on a model axis of 2: S / 2 of the positions against all."""
+    if cfg.family == "ssm":
+        return []
+    s += cfg.n_patches if cfg.family == "vlm" else 0
+    calls = [(s // 2, s, True)]
+    if cfg.family == "audio":       # the encoder's, and the cross's
+        f = cfg.n_audio_frames
+        calls += [(f // 2, f, False), (s // 2, f, False)]
+    return sorted(calls)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_axis_splits_queries(suite, arch):
+    """Every rank of (2,2,2) attends S / model of the positions in train
+    and prefill: the self-attention's queries against all of its keys, the
+    audio encoder's likewise, the cross-attention's against all frames."""
+    cfg = get_config(arch)
+    rec = suite["splits"][arch]
+    assert len(rec["train"]) == len(rec["serve"]) == 8
+    for r in rec["train"]:
+        assert r["attn"] == _attn_calls(cfg, ranks.TRAIN_SEQ), r["attn"]
+    for r in rec["serve"]:
+        assert r["attn"] == _attn_calls(cfg, ranks.SERVE_S), r["attn"]
+
+
 @pytest.mark.parametrize("mesh", ["222", "12"])
 def test_hybrid_ring_decode_wraps(suite, serve12, ref, mesh):
     """Prompt 8, then 12 decode steps through positions 8..19 of the

@@ -11,6 +11,7 @@ every rank's log tail, and no rank is left running.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -229,6 +230,48 @@ def serve_inputs(cfg, s: int = SERVE_S, n: int = SERVE_N):
     return {"tokens": prompt, **frontend_stub(cfg, SERVE_B, rng)}, dec
 
 
+@contextlib.contextmanager
+def probe():
+    """What this rank computes while the block runs: each call of the
+    experts' FFN as (its capacity buffer's shape (G, E, C, d), ``wi``'s
+    shape (E, d, ff)) under ``"experts"``, and each train or prefill
+    attention as (its queries, its keys and values, causal) under
+    ``"attn"``."""
+    from repro_torch.models import lm
+    from repro_torch.nn import moe
+    rec: dict = {"experts": [], "attn": []}
+    ffn, attn = moe._expert_ffn, lm.gqa_attention
+
+    def ffn_probe(p, x):
+        rec["experts"].append((tuple(x.shape), tuple(p["wi"].shape)))
+        return ffn(p, x)
+
+    def attn_probe(q, k, v, **kw):
+        rec["attn"].append((q.shape[1], k.shape[1], kw.get("causal", True)))
+        return attn(q, k, v, **kw)
+
+    moe._expert_ffn, lm.gqa_attention = ffn_probe, attn_probe
+    try:
+        yield rec
+    finally:
+        moe._expert_ffn, lm.gqa_attention = ffn, attn
+
+
+def every_rank(rec) -> list:
+    """``rec`` of every rank of the default group, in rank order."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, rec)
+    return out
+
+
+def _split_records(train, serve) -> dict:
+    """Every rank's ``probe`` records of a mesh train run and serve run,
+    each kind's calls as a set."""
+    return {mode: [{k: sorted(set(v)) for k, v in r.items()}
+                   for r in every_rank(rec)]
+            for mode, rec in (("train", train), ("serve", serve))}
+
+
 # -- programs ------------------------------------------------------------------
 
 def mesh_suite(rank, world, workdir, ref_path):
@@ -252,9 +295,11 @@ def mesh_suite(rank, world, workdir, ref_path):
             gmin: list = []
             single = _train(cfg, init, TRAIN_STEPS, grads=gmin, **opts) \
                 if rank == 0 else None
-            losses, p, _ = _train(cfg, init, TRAIN_STEPS, mesh=m222,
-                                  routing=routing, **opts)
+            with probe() as rec:
+                losses, p, _ = _train(cfg, init, TRAIN_STEPS, mesh=m222,
+                                      routing=routing, **opts)
             if name == "direct":
+                train_rec = rec
                 # a port checkpoint written on the mesh, for the reference
                 save_checkpoint(str(Path(workdir) / f"ckpt_{arch}"),
                                 TRAIN_STEPS, {"params": p})
@@ -265,10 +310,13 @@ def mesh_suite(rank, world, workdir, ref_path):
                     single_params=single[1], grad_min=gmin, lr=_ocfg().lr)
         prompt, dec = serve_inputs(cfg)
         single = _serve(cfg, init, prompt, dec) if rank == 0 else None
-        got, slots = _serve(cfg, init, prompt, dec, mesh=m222)
+        with probe() as rec:
+            got, slots = _serve(cfg, init, prompt, dec, mesh=m222)
+        splits = _split_records(train_rec, rec)
         if rank == 0:
             out["serve"][(arch, "222")] = dict(mesh=got, single=single[0],
                                                local_slots=slots)
+            out.setdefault("splits", {})[arch] = splits
     out["seconds_train_serve"] = time.perf_counter() - t0
     out["lse"] = {n: lse_merge(make_mesh(shape, ("data", "model"),
                                          device="cpu"))
@@ -374,7 +422,9 @@ def elastic_second(rank, world, workdir, ref_path):
 
 
 def serve_12(rank, world, workdir, ref_path):
-    """World 2: the serve steps on (1,2) ("data", "model")."""
+    """World 2: the serve steps on (1,2) ("data", "model"), of SERVE_S
+    prompt tokens and of SERVE_S - 1 (``"12_odd"``: the model axis splits
+    prefill's positions unevenly, 8 and 7)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     ref = dict(np.load(ref_path))
@@ -383,11 +433,12 @@ def serve_12(rank, world, workdir, ref_path):
     for arch in ARCHS:
         cfg = get_config(arch)
         init = ref_params(ref, arch, cfg)
-        prompt, dec = serve_inputs(cfg)
-        single = _serve(cfg, init, prompt, dec) if rank == 0 else None
-        got, slots = _serve(cfg, init, prompt, dec, mesh=m12)
-        out[(arch, "12")] = dict(mesh=got, single=None if single is None
-                                 else single[0], local_slots=slots)
+        for name, s in (("12", SERVE_S), ("12_odd", SERVE_S - 1)):
+            prompt, dec = serve_inputs(cfg, s)
+            single = _serve(cfg, init, prompt, dec) if rank == 0 else None
+            got, slots = _serve(cfg, init, prompt, dec, mesh=m12)
+            out[(arch, name)] = dict(mesh=got, single=None if single is None
+                                     else single[0], local_slots=slots)
     return out
 
 
@@ -408,7 +459,8 @@ def _local_state_shapes(cfg, mesh) -> dict:
 def _family_serves(cfg, arch, init, mesh, name, rank) -> dict:
     """The serve steps of ``arch`` on ``mesh`` (and on one device, rank 0),
     and for the hybrid the ring past its wrap, keyed (arch, name) and
-    (arch, name + "_ring")."""
+    (arch, name + "_ring"); each with this rank's ``probe`` records of the
+    mesh's steps."""
     out = {}
     cases = [("", SERVE_S, SERVE_N)]
     if arch == RING_ARCH:
@@ -416,9 +468,10 @@ def _family_serves(cfg, arch, init, mesh, name, rank) -> dict:
     for tag, s, n in cases:
         prompt, dec = serve_inputs(cfg, s, n)
         single = _serve(cfg, init, prompt, dec)[0] if rank == 0 else None
-        got, slots = _serve(cfg, init, prompt, dec, mesh=mesh)
+        with probe() as rec:
+            got, slots = _serve(cfg, init, prompt, dec, mesh=mesh)
         out[(arch, name + tag)] = dict(mesh=got, single=single,
-                                       local_slots=slots)
+                                       local_slots=slots, probe=rec)
     out[(arch, name)]["local_state"] = _local_state_shapes(cfg, mesh)
     return out
 
@@ -441,7 +494,8 @@ def family_suite(rank, world, workdir, ref_path):
         gmin: list = []
         single = _train(cfg, init, TRAIN_STEPS, grads=gmin) \
             if rank == 0 else None
-        losses, p, _ = _train(cfg, init, TRAIN_STEPS, mesh=m222)
+        with probe() as train_rec:
+            losses, p, _ = _train(cfg, init, TRAIN_STEPS, mesh=m222)
         save_checkpoint(str(Path(workdir) / f"ckpt_{arch}"), TRAIN_STEPS,
                         {"params": p})
         p = _full(p)
@@ -449,8 +503,11 @@ def family_suite(rank, world, workdir, ref_path):
             out["train"][arch] = dict(
                 mesh=losses, single=single[0], params=p,
                 single_params=single[1], grad_min=gmin, lr=_ocfg().lr)
-        out["serve"].update(_family_serves(cfg, arch, init, m222, "222",
-                                           rank))
+        serves = _family_serves(cfg, arch, init, m222, "222", rank)
+        splits = _split_records(train_rec, serves[(arch, "222")]["probe"])
+        out["serve"].update(serves)
+        if rank == 0:
+            out.setdefault("splits", {})[arch] = splits
     out["seconds"] = time.perf_counter() - t0
     return out
 
