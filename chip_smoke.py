@@ -147,7 +147,8 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
        2 layers: 3 mesh train steps at (a)'s shape of step 10, then
        prefill + 4 decode steps, against the single-device steps on the
        card (losses rtol 1e-6, params and logits within 1e-6 of the
-       largest magnitude);
+       largest magnitude), each record's ``splits`` the calls of the model
+       axis's split paths (``split_calls``), nonzero where due;
    (b) step 10 (b)'s bf16 training through ``train_loop(mesh=)``: ms a
        step, tokens/s and peak memory beside step 10 (b)'s;
    (c) step 8 (b)'s full-depth bf16 serve through the mesh's prefill and
@@ -2436,13 +2437,23 @@ class split_calls:
     code): ``seq_gathers``, attention's gathers along the sequence (k, v
     and the sublayer's output, ``lm._seq_gather``); ``expert_splits``, MoE
     layers whose routed experts the rules split (``lm._moe`` with
-    ``MeshCtx.experts``)."""
+    ``MeshCtx.experts``); ``vocab_embeds`` and ``vocab_heads``, the
+    embedding tables and LM heads taken in their vocabulary slice
+    (``lm._vocab_param`` with ``MeshCtx.vocab``), ``vocab_losses``, the
+    log-sum-exps split over the model axis (``lm._split_logz`` with a
+    group); ``head_splits``, decode attentions split by heads
+    (``lm._heads_attn``)."""
+
+    NAMES = ("_seq_gather", "_moe", "_vocab_param", "_split_logz",
+             "_heads_attn")
 
     def __enter__(self):
         from repro_torch.models import lm
-        self.lm, self.n = lm, dict(seq_gathers=0, expert_splits=0)
-        self.saved = lm._seq_gather, lm._moe
-        gather, moe = self.saved
+        self.lm = lm
+        self.n = dict(seq_gathers=0, expert_splits=0, vocab_embeds=0,
+                      vocab_heads=0, vocab_losses=0, head_splits=0)
+        self.saved = [getattr(lm, name) for name in self.NAMES]
+        gather, moe, vocab_param, logz, heads = self.saved
 
         def seq_gather(*a, **kw):
             self.n["seq_gathers"] += 1
@@ -2453,11 +2464,27 @@ class split_calls:
                 ctx.mesh.experts is not None
             return moe(p, xn, ctx)
 
-        lm._seq_gather, lm._moe = seq_gather, moe_layer
+        def vocab_slice(t, mc, dim):
+            if mc.vocab is not None:
+                self.n["vocab_heads" if dim else "vocab_embeds"] += 1
+            return vocab_param(t, mc, dim)
+
+        def split_logz(lg, group):
+            self.n["vocab_losses"] += group is not None
+            return logz(lg, group)
+
+        def heads_attn(*a, **kw):
+            self.n["head_splits"] += 1
+            return heads(*a, **kw)
+
+        for name, fn in zip(self.NAMES, (seq_gather, moe_layer, vocab_slice,
+                                         split_logz, heads_attn)):
+            setattr(lm, name, fn)
         return self.n
 
     def __exit__(self, *exc):
-        self.lm._seq_gather, self.lm._moe = self.saved
+        for name, fn in zip(self.NAMES, self.saved):
+            setattr(self.lm, name, fn)
 
 
 def _rel_err(got, want) -> float:
@@ -2584,10 +2611,16 @@ def mesh_check_fp32(arch, mesh, dev, strict: bool = True, overrides=None,
                                  f"{logit_err} of the largest")
         # the split paths ran: sequence-parallel attention in train and
         # prefill (every family but the ssm), the routed experts split
-        # over the model axis (moe)
-        want = dict(seq_gathers=cfg.family != "ssm",
-                    expert_splits=cfg.family == "moe")
+        # over the model axis (moe), the embedding and the LM head in
+        # their vocabulary slice, the loss's log-sum-exp split (train),
+        # decode's attention split by heads (serve, every family but the
+        # ssm)
         for mode, n_calls in rec["splits"].items():
+            want = dict(seq_gathers=cfg.family != "ssm",
+                        expert_splits=cfg.family == "moe",
+                        vocab_embeds=True, vocab_heads=True,
+                        vocab_losses=mode == "train",
+                        head_splits=mode == "serve" and cfg.family != "ssm")
             if any(bool(n_calls[k]) != v for k, v in want.items()):
                 raise AssertionError(f"mesh {arch} {mode}: split calls "
                                      f"{n_calls}, want {want}")
@@ -2961,19 +2994,20 @@ DRYRUN_CELL_TIMEOUT_S = 600
 # 60 cells of 2-50 s of fake dispatch each took 198-241 s on an H100
 # host's 8 cores, not the 120 s first aimed at
 DRYRUN_LIMIT_S = 300.0
-# every cell's counts before the model axis split the routed experts and
-# attention's queries (commit caa8bce's dry-run on fake tensors)
+# every cell's counts before the model axis split the vocabulary and
+# decode's heads (commit 8fee395's dry-run on fake tensors, written by
+# ``dryrun_baseline``)
 DRYRUN_BASELINE = ROOT / "chip_smoke_dryrun_baseline.json"
 
 
-def dryrun_phase(out_dir: Path) -> dict:
-    """``python -m repro_torch.launch.dryrun`` over every (arch x shape)
-    cell on the fake 16x16 mesh and over DRYRUN_MULTIPOD_ARCHS' on 2x16x16
-    (``--multi-pod``), one cell a process (the fake process group is a
-    process's default group), DRYRUN_JOBS at a time; their records joined
-    in ``out_dir / "dryrun.jsonl"``.  Prints the ``dryrun`` line: cells ok,
-    skipped and failed, and seconds.  A failed cell fails the run.  Runs on
-    the host's cores only: no process touches the card."""
+def dryrun_counts(out_dir: Path, root: Path = ROOT):
+    """``python -m repro_torch.launch.dryrun`` of the checkout at ``root``
+    over every (arch x shape) cell on the fake 16x16 mesh and over
+    DRYRUN_MULTIPOD_ARCHS' on 2x16x16 (``--multi-pod``), one cell a
+    process (the fake process group is a process's default group),
+    DRYRUN_JOBS at a time; their records joined in ``out_dir /
+    "dryrun.jsonl"``.  Returns (cells, records, failed cells, seconds).
+    Runs on the host's cores only: no process touches the card."""
     import concurrent.futures
     import os
     from repro_torch.configs import ARCHS, LM_SHAPES
@@ -2984,17 +3018,17 @@ def dryrun_phase(out_dir: Path) -> dict:
                                       (True, DRYRUN_MULTIPOD_ARCHS))
              for a in archs]
     parts = out_dir / "dryrun_parts"
-    parts.mkdir(exist_ok=True)
+    parts.mkdir(parents=True, exist_ok=True)
     for old in parts.glob("*.jsonl"):
         old.unlink()
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
 
     def count(i, cell):
         arch, shape, multi_pod = cell
         out = parts / f"{i:03d}.jsonl"
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                arch, "--shape", shape, "--out", str(out)]
-        proc = subprocess.run(cmd + ["--multi-pod"] * multi_pod, cwd=ROOT,
+        proc = subprocess.run(cmd + ["--multi-pod"] * multi_pod, cwd=root,
                               env=env, capture_output=True, text=True,
                               timeout=DRYRUN_CELL_TIMEOUT_S)
         recs = [json.loads(ln) for ln in out.read_text().splitlines()] \
@@ -3013,6 +3047,32 @@ def dryrun_phase(out_dir: Path) -> dict:
             bad.append((cell, rc, got, err))
     (out_dir / "dryrun.jsonl").write_text(
         "".join(json.dumps(r) + "\n" for r in recs))
+    return cells, recs, bad, seconds
+
+
+def dryrun_baseline(root: Path, out: Path, what: str) -> None:
+    """Writes ``out``, a DRYRUN_BASELINE of the checkout at ``root`` (the
+    parent commit's, unpacked): each ok cell's FLOPs, useful fraction and
+    collective bytes summed over kinds, beside ``what`` says whence.  The
+    counts are made on fake tensors and are the same on any host."""
+    _, recs, bad, _ = dryrun_counts(out.parent / "baseline_counts", root)
+    if bad:
+        raise AssertionError(f"dry-run of {root}: {len(bad)} cells failed")
+    cells = {f"{r['arch']}/{r['shape']}@{r['mesh']}": dict(
+        useful_flops_frac=r["useful_flops_frac"],
+        coll_bytes=sum(r["coll_bytes"].values()), flops=r["flops"])
+        for r in recs if r["status"] == "ok"}
+    out.write_text(json.dumps(dict(what=what, cells=dict(sorted(
+        cells.items()))), indent=1) + "\n")
+
+
+def dryrun_phase(out_dir: Path) -> dict:
+    """The dry-run's counts of this checkout (``dryrun_counts``) beside
+    DRYRUN_BASELINE.  Prints the ``dryrun`` line: cells ok, skipped and
+    failed, and seconds, and a ``dryrun_cell`` line a cell.  A failed cell,
+    or one whose useful fraction fell below the baseline's, fails the
+    run."""
+    cells, recs, bad, seconds = dryrun_counts(out_dir)
     ok = [r for r in recs if r["status"] == "ok"]
     summary = dict(
         cells=len(cells), ok=len(ok),
@@ -3025,8 +3085,7 @@ def dryrun_phase(out_dir: Path) -> dict:
         useful_flops_frac={f"{r['arch']}/{r['shape']}@{r['mesh']}":
                            r["useful_flops_frac"] for r in ok})
     print(f"dryrun {json.dumps(summary)}")
-    # each cell beside its counts before the model axis split the routed
-    # experts and attention's queries (DRYRUN_BASELINE): a cell whose
+    # each cell beside its baseline counts (DRYRUN_BASELINE): a cell whose
     # useful fraction fell fails the run
     base = json.loads(DRYRUN_BASELINE.read_text())["cells"]
     fell = []

@@ -42,7 +42,15 @@ model axis's compute split as the rules place it:
   sublayer's output is gathered whole for the MLP or MoE that follows;
 * a decode attention on this rank's slice of a KV cache split along its
   slots (the hybrid's ring too), merged across the model axis by
-  log-sum-exp (``_decode_kv_shard``).
+  log-sum-exp (``_decode_kv_shard``);
+* decode's q/k/v/o projections over ``kv_heads`` (or, under MQA,
+  ``heads``) where the rules put ``act_heads`` on the model axis: each
+  rank projects its heads, q, k and v are gathered whole for the cache
+  attention, and each rank's heads of its output go through its slice of
+  ``wo`` (``_heads_attn``);
+* the embedding and the LM head over ``vocab``: each rank looks up the
+  tokens of its rows of the table and computes its columns of the logits,
+  which :func:`lm_loss` reduces by a log-softmax split over the same axis.
 
 The other params are gathered whole, and recurrent states that the rules
 split along their channels are gathered whole for the layer and written
@@ -274,6 +282,13 @@ class MeshCtx:
     # split the routed experts' params over it (``experts`` in train,
     # ``expert_ff`` in serve), else None
     experts: tuple[int, str] | None = None
+    # the model axis's mesh dim when the rules split the vocabulary over it
+    # (``vocab``: the embedding's rows, the LM head's columns), else None
+    vocab: int | None = None
+    # (the model axis's mesh dim, the head dim of ``wq`` that it splits: 1
+    # for K, 2 for MQA's G) when the rules put ``act_heads`` on it and
+    # split the attention params by heads (decode's projections), else None
+    heads: tuple[int, int] | None = None
 
     def parted(self, dim: int) -> tuple:
         """The gradient placements of a gathered param whose gradient is a
@@ -331,6 +346,12 @@ def _project(x, w):
     """x (B, S, d) @ w (d, *heads) -> (B, S, *heads)."""
     d = x.shape[-1]
     return (x @ w.reshape(d, -1).to(x.dtype)).view(*x.shape[:2], *w.shape[1:])
+
+
+def _out_proj(out, wo):
+    """out (B, S, *heads) @ wo (*heads, d) -> (B, S, d), heads flattened
+    (an empty slice of the positions works)."""
+    return out.flatten(2) @ wo.reshape(-1, wo.shape[-1]).to(out.dtype)
 
 
 def _attn_act_names(mode: str):
@@ -499,15 +520,75 @@ def _decode_kv_shard(q, k, v, cache, ctx: Ctx, local_window: int = 0):
     return out.to(q.dtype)
 
 
+def _heads_gather(q, k, v, ax: int, group, m: int):
+    """q (B, 1, K, G, hd), k and v (B, 1, K, hd) of this rank's heads,
+    whole along them: one all-gather over the model group (``m`` ranks,
+    rank r holding the r-th slice) of q, k and v packed a head; under MQA
+    (``ax`` 2: q's G split, k and v whole) of q alone."""
+    import torch.distributed as dist
+    ts = (q, k, v) if ax == 1 else (q,)
+    b, n = q.shape[0], q.shape[ax + 1]
+    widths = [t.numel() // (b * n) for t in ts]
+    loc = torch.cat([t.reshape(b, n, -1) for t in ts], -1).contiguous()
+    buf = loc.new_empty((m * b,) + loc.shape[1:])
+    # torch 2.13 renames all_gather_into_tensor to all_gather_single
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    gather(buf, loc, group=group)
+    whole = buf.view(m, b, n, -1).transpose(0, 1).reshape(b, m * n, -1)
+    out = []
+    for t, part in zip(ts, torch.split(whole, widths, -1)):
+        shape = list(t.shape)
+        shape[ax + 1] = m * n
+        out.append(part.reshape(shape))
+    return tuple(out) if ax == 1 else (out[0], k, v)
+
+
+def _heads_attn(p, xn, ctx: Ctx, cache, local_window: int, cross: bool):
+    """A decode attention where the model axis splits the heads
+    (``MeshCtx.heads``; ``p``'s q/k/v/o leaves are this rank's slice):
+    this rank projects its heads of the new token (qk-norm and RoPE are a
+    head's own); self-attention gathers q, k and v whole
+    (``_heads_gather``), attends its slice of the cache's slots merged by
+    log-sum-exp (``_decode_kv_shard``, which gives every rank every head)
+    and keeps its own heads; cross-attention attends its heads alone
+    against the whole cross cache.  Returns this rank's heads' output
+    (B, 1, K, G, hd) with K (or MQA's G) sliced."""
+    mc = ctx.mesh
+    dim, ax = mc.heads
+    m, r = mc.mesh.size(dim), mc.mesh.get_local_rank(dim)
+    if cross:
+        q = _project(xn, p["wq"])
+        ck, cv = cache["k"], cache["v"]
+        if ax == 1:
+            n = q.shape[2]
+            ck, cv = ck[:, :, r * n:(r + 1) * n], cv[:, :, r * n:(r + 1) * n]
+        return flash_decode(q, ck, cv, ctx.lengths_of(ck.shape[1]))
+    q, k, v = _project_qkv(p, xn, ctx)
+    n = q.shape[ax + 1]
+    q, k, v = _heads_gather(q, k, v, ax, mc.mesh.get_group(dim), m)
+    out = _decode_kv_shard(q, k, v, cache, ctx, local_window)
+    return out.narrow(ax + 1, r * n, n)
+
+
 def _apply_attn(p, x, ctx: Ctx, cache, *, local_window: int = 0,
                 cross: bool = False):
     """Self- or cross-attention sublayer.  Returns x + attention output
-    (a sequence split's slice of it may hold no position)."""
+    (a sequence split's slice of it may hold no position).  Where the
+    model axis splits the heads (decode on a mesh), each rank's heads go
+    through its slice of ``wo`` and the parts are summed over the axis."""
     xn = apply_norm(x, p["ln"], ctx.cfg.norm, 1e-6)
-    out = _cross_attn(p, xn, ctx, cache) if cross else \
-        _self_attn(p, xn, ctx, cache, local_window)
-    proj = out.to(x.dtype).flatten(2) @ \
-        p["wo"].reshape(-1, x.shape[-1]).to(x.dtype)
+    heads = ctx.mesh.heads if ctx.mode == "decode" and ctx.mesh is not None \
+        else None
+    if heads is not None:
+        out = _heads_attn(p, xn, ctx, cache, local_window, cross)
+    elif cross:
+        out = _cross_attn(p, xn, ctx, cache)
+    else:
+        out = _self_attn(p, xn, ctx, cache, local_window)
+    proj = _out_proj(out.to(x.dtype), p["wo"])
+    if heads is not None:
+        proj = sh.summed(proj, ctx.mesh.mesh, ctx.mesh.rows, heads[0])
     return x + proj
 
 
@@ -833,24 +914,30 @@ def _rows(x, mc: MeshCtx):
     return x.redistribute(mc.mesh, mc.rows).to_local()
 
 
+def _param(t, mc: MeshCtx, keep: int | None = None, grad=None):
+    """The param DTensor ``t`` on this rank: gathered from its shards (its
+    gradient returns as ``grad`` says, by default ``mc.grad``), but left
+    in its slice along mesh dim ``keep``."""
+    from torch.distributed.tensor import Replicate
+    grad = list(mc.grad if grad is None else grad)
+    if keep is None:
+        return sh.replicated(t, tuple(grad))
+    want = [Replicate()] * len(t.placements)
+    want[keep] = grad[keep] = t.placements[keep]
+    return t.redistribute(t.device_mesh, want).to_local(
+        grad_placements=grad)
+
+
 def _layer_param(t, layer: int, mc: MeshCtx, keep: int | None = None,
                  grad=None):
-    """Layer ``layer`` of a stacked param on this rank: gathered from its
-    shards (its gradient returns as ``grad`` says, by default
-    ``mc.grad``), but left in its slice along mesh dim ``keep``."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    grad = list(mc.grad if grad is None else grad)
+    """Layer ``layer`` of a stacked param on this rank (``_param``)."""
+    from torch.distributed.tensor import DTensor, Shard
     place = [Shard(p.dim - 1) if isinstance(p, Shard) else p
              for p in t.placements]
     sl = DTensor.from_local(t.to_local()[layer], t.device_mesh, place,
                             run_check=False, shape=t.shape[1:],
                             stride=_strides(t.shape[1:]))
-    if keep is None:
-        return sh.replicated(sl, tuple(grad))
-    want = [Replicate()] * len(place)
-    want[keep] = grad[keep] = place[keep]
-    return sl.redistribute(t.device_mesh, want).to_local(
-        grad_placements=grad)
+    return _param(sl, mc, keep, grad)
 
 
 # the leaves a mesh layer keeps in their model-axis slice of ff (where the
@@ -861,33 +948,42 @@ _FF_SPLIT = {"mlp": ("wi", "wg", "wo"),
 _EXPERTS_SPLIT = ("wi", "wg", "wo")
 # the attention sublayers, whose gradients a sequence split makes parts
 _ATTN_SUBLAYERS = ("attn", "xa")
+# an attention sublayer's leaves kept in their slice of the heads where
+# ``MeshCtx.heads`` (decode), by the head dim split: K (GQA, MHA), or G
+# (MQA, whose k and v have one head, whole on every rank)
+_HEADS_SPLIT = {1: ("wq", "wk", "wv", "bq", "bk", "bv", "wo"),
+                2: ("wq", "bq", "wo")}
 
 
-def _kept(name: str, mc: MeshCtx) -> dict:
+def _kept(name: str, mc: MeshCtx, heads: bool = False) -> dict:
     """{leaf: mesh dim} of a block's subtree ``name`` that stay in their
-    model-axis slice."""
+    model-axis slice (an attention sublayer's by heads if ``heads``)."""
     out = {}
     if mc.ff_dim is not None:
         out.update(dict.fromkeys(_FF_SPLIT.get(name, ()), mc.ff_dim))
     if name == "moe" and mc.experts is not None:
         out.update(dict.fromkeys(_EXPERTS_SPLIT, mc.experts[0]))
+    if heads and mc.heads is not None and name in _ATTN_SUBLAYERS:
+        out.update(dict.fromkeys(_HEADS_SPLIT[mc.heads[1]], mc.heads[0]))
     return out
 
 
 def _gather_block(tree: dict, layer: int, mc: MeshCtx, seq: bool = False,
-                  keep=None, grad=None) -> dict:
+                  keep=None, grad=None, heads: bool = False) -> dict:
     """A block's layer-``layer`` params on this rank (``_layer_param``):
-    the leaves ``_kept`` names stay in their model-axis slice.  Their
-    gradients return as ``grad`` says (default ``mc.grad``), and as parts
-    summed over the model axis too (``MeshCtx.parted``) for an attention
-    sublayer under a sequence split (``seq``) and for the router where the
-    model axis splits the routed experts."""
+    the leaves ``_kept`` names stay in their model-axis slice (by heads
+    too where ``heads``: decode).  Their gradients return as ``grad`` says
+    (default ``mc.grad``), and as parts summed over the model axis too
+    (``MeshCtx.parted``) for an attention sublayer under a sequence split
+    (``seq``) and for the router where the model axis splits the routed
+    experts."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             sub = mc.parted(mc.seq_dim) if seq and k in _ATTN_SUBLAYERS \
                 else grad
-            out[k] = _gather_block(v, layer, mc, seq, _kept(k, mc), sub)
+            out[k] = _gather_block(v, layer, mc, seq, _kept(k, mc, heads),
+                                   sub, heads)
         else:
             g = mc.parted(mc.experts[0]) if k == "router" and mc.experts \
                 else grad
@@ -999,7 +1095,8 @@ def _mesh_layer(x, layer: int, stack_params, stack_cache, pattern,
     for i, kind in enumerate(pattern):
         key = f"{i}_{kind}"
         h = _block_input(h, kind, ctx)
-        gp = _gather_block(stack_params[key], layer, mc, ctx.seq is not None)
+        gp = _gather_block(stack_params[key], layer, mc, ctx.seq is not None,
+                           heads=ctx.mode == "decode")
         bc, write_back = None, None
         if stack_cache is not None and kind in _RECURRENT:
             bc, write_back = _state_whole(stack_cache[key], layer, mc)
@@ -1053,11 +1150,26 @@ def _mesh_ctx(rules, cfg: ModelConfig, b: int, cache) -> MeshCtx:
         for name, axes in zip(("experts", None, "expert_ff"), spec):
             if name and axes and "model" in axes:
                 experts = (model, name)
+    # the embedding's and the LM head's own split
+    vocab = model if "model" in (rules.fit_spec(
+        ("vocab", "embed"), (cfg.padded_vocab, cfg.d_model))[0] or ()) \
+        else None
+    heads = None
+    if on_model("act_heads") is not None:
+        # ``wq``'s own split: K (kv_heads) or, under MQA, G (heads)
+        nk = cfg.n_kv_heads
+        spec = rules.fit_spec(
+            ("embed", "kv_heads" if nk > 1 else None,
+             "heads" if nk == 1 else None, None),
+            (cfg.d_model, nk, cfg.n_heads // nk, cfg.resolved_head_dim))
+        for ax in (1, 2):
+            if "model" in (spec[ax] or ()):
+                heads = (model, ax)
     return MeshCtx(rules=rules, mesh=mesh, batch=b, rows=rows,
                    row_range=sh.row_range(b, mesh, rows),
                    grad=sh.partial_over(rows), kv=kv,
                    ff_dim=on_model("act_ff"), seq_dim=on_model("seq"),
-                   experts=experts)
+                   experts=experts, vocab=vocab, heads=heads)
 
 
 def _seq_of(n: int, mc: MeshCtx, mode: str) -> tuple[int, int] | None:
@@ -1091,7 +1203,12 @@ def _mesh_forward(params, inputs: dict, cfg: ModelConfig, mode: str,
     def gathered(tree):
         return map_defs(lambda t: sh.replicated(t, mc.grad), tree)
 
-    x = gathered(params["embed"]).to(dt)[tokens[r0:r1].to(dev).long()]
+    emb, v0 = _vocab_param(params["embed"], mc, 0)
+    x = _vocab_embed(emb.to(dt), tokens[r0:r1].to(dev).long(), v0)
+    if mc.vocab is not None:
+        # each token's row is on one model rank, zeros on the others: the
+        # sum is exact in any dtype
+        x = sh.summed(x, mc.mesh, mc.rows, mc.vocab)
     local = {k: whole(v)[r0:r1] for k, v in inputs.items()
              if k in ("frames", "patches")}
     enc_out = None
@@ -1134,15 +1251,56 @@ def _mesh_forward(params, inputs: dict, cfg: ModelConfig, mode: str,
     if mode == "train":
         x = shard_act(x, ("batch", None, "act_embed"))
     x = apply_norm(_rows(x, mc), gathered(params["out_ln"]), cfg.norm, 1e-6)
-    head = (gathered(params["embed"]).T if cfg.tie_embeddings
-            else gathered(params["lm_head"])).to(dt)
+    head = (emb.T if cfg.tie_embeddings
+            else _vocab_param(params["lm_head"], mc, 1)[0]).to(dt)
+    if mc.vocab is not None:
+        # each model rank computes its columns of the logits
+        x = sh.grads_summed(x, mc.mesh, mc.rows, mc.vocab)
     if mode == "train":
-        return shard_act(_from_rows(x @ head, mc), ("batch", None, "vocab"))
+        return shard_act(_vocab_logits(_lm_head(x, head), mc),
+                         ("batch", None, "vocab"))
     if mode == "prefill":
         cache["pos"] = x.shape[1]
-        return _from_rows(x[:, -1, :] @ head, mc), cache
+        return _vocab_logits(_lm_head(x[:, -1, :], head), mc), cache
     cache["pos"] = pos0 + 1
-    return _from_rows(x[:, 0, :] @ head, mc), cache
+    return _vocab_logits(_lm_head(x[:, 0, :], head), mc), cache
+
+
+def _vocab_param(t, mc: MeshCtx, dim: int):
+    """The embedding table (``dim`` 0: vocab) or the LM head (``dim`` 1)
+    on this rank, gathered along the data axes and left in its slice of
+    the vocabulary where the model axis splits it (``MeshCtx.vocab``;
+    whole otherwise), and the slice's first token."""
+    v0 = 0 if mc.vocab is None else sh.row_range(
+        t.shape[dim], t.device_mesh, t.placements, dim=dim)[0]
+    return _param(t, mc, mc.vocab), v0
+
+
+def _vocab_embed(table, tokens, v0: int):
+    """The rows of ``table``, this rank's slice of the vocabulary from
+    token ``v0``, for ``tokens``: zeros for a token outside the slice."""
+    idx = tokens - v0
+    mine = (idx >= 0) & (idx < table.shape[0])
+    return table[idx.clamp(0, table.shape[0] - 1)].masked_fill(
+        ~mine[..., None], 0)
+
+
+def _lm_head(x, head):
+    """x (..., d) @ head (d, V): the logits of this rank's slice of the
+    vocabulary on a mesh."""
+    return x @ head
+
+
+def _vocab_logits(lg, mc: MeshCtx):
+    """This rank's rows and vocabulary slice ``lg`` (rows, ..., V / model)
+    of the logits as a DTensor placed (batch, ..., vocab)."""
+    from torch.distributed.tensor import DTensor, Shard
+    place = tuple(Shard(lg.dim() - 1) if d == mc.vocab else p
+                  for d, p in enumerate(mc.rows))
+    v = lg.shape[-1] * (1 if mc.vocab is None else mc.mesh.size(mc.vocab))
+    shape = (mc.batch, *lg.shape[1:-1], v)
+    return DTensor.from_local(lg, mc.mesh, place, run_check=False,
+                              shape=shape, stride=_strides(shape))
 
 
 def _frontend_input(inputs: dict, name: str, want: int, cfg, dev, dt):
@@ -1252,20 +1410,27 @@ def lm_loss(params, batch: dict, cfg: ModelConfig):
     if not sh.is_dtensor(logits):
         num, den = _nll_sums(logits, tokens, mask, cfg)
         return num / torch.clamp(den, min=1.0)
-    # on a mesh: this rank's rows of the logits, whole along the vocab;
-    # the sums over every rank's rows
-    mc_rows = sh.rows_placements(sh.current_rules(), tuple(logits.shape))
+    # on a mesh: this rank's rows of the logits and its slice of the
+    # vocabulary (the model axis's, where the rules split it); the
+    # log-softmax split over that axis, the sums over every rank's rows
+    from torch.distributed.tensor import Shard
     mesh = logits.device_mesh
-    r0, r1 = sh.row_range(logits.shape[0], mesh, mc_rows)
-    lg = logits.redistribute(mesh, mc_rows).to_local()
+    rows = sh.rows_placements(sh.current_rules(), tuple(logits.shape))
+    vdim = next((d for d, p in enumerate(logits.placements)
+                 if isinstance(p, Shard) and p.dim == 2), None)
+    place = tuple(Shard(2) if d == vdim else p for d, p in enumerate(rows))
+    r0, r1 = sh.row_range(logits.shape[0], mesh, rows)
+    v0, _ = sh.row_range(logits.shape[2], mesh, place, dim=2)
+    lg = logits.redistribute(mesh, place).to_local()
 
-    def rows(t):
+    def rows_of(t):
         t = t.full_tensor() if sh.is_dtensor(t) else torch.as_tensor(t)
         return t[r0:r1]
 
-    num, den = _nll_sums(lg, rows(tokens), None if mask is None
-                         else rows(mask), cfg)
-    tot = sh.sum_over(torch.stack([num, den]), mesh, mc_rows)
+    num, den = _split_nll_sums(lg, rows_of(tokens), None if mask is None
+                               else rows_of(mask), cfg, v0, mesh, rows,
+                               vdim)
+    tot = sh.sum_over(torch.stack([num, den]), mesh, rows)
     return tot[0] / torch.clamp(tot[1], min=1.0)
 
 
@@ -1281,6 +1446,69 @@ def _nll_sums(logits, tokens, mask, cfg: ModelConfig):
         lg = lg.masked_fill(pad, NEG_INF)
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
+    nll = logz - gold
+    mask = torch.ones_like(nll) if mask is None else torch.as_tensor(
+        mask, device=dev)[:, 1:].float()
+    return (nll * mask).sum(), mask.sum()
+
+
+class _SplitLogsumexp(torch.autograd.Function):
+    """log-sum-exp over the last dim of ``x``, which the ranks of ``group``
+    (None: this rank alone) split: the largest local value, all-reduced
+    by MAX (it carries no gradient); the local sums of exp(x - max),
+    all-reduced by SUM; max + log(sum).  These are ``torch.logsumexp``'s
+    ops, and its backward, grad x exp(x - result), is each rank's own."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        top = torch.amax(x, -1, keepdim=True)
+        if group is not None:
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        top.masked_fill_(top.abs() == math.inf, 0)
+        out = (x - top).exp_().sum(-1)
+        if group is not None:
+            dist.all_reduce(out, group=group)
+        out = out.log_().add_(top[..., 0])
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return grad[..., None] * (x - out[..., None]).exp(), None
+
+
+def _split_logz(lg, group):
+    """``torch.logsumexp(lg, -1)`` of the logits whose vocabulary the ranks
+    of ``group`` split (``_SplitLogsumexp``)."""
+    return _SplitLogsumexp.apply(lg, group)
+
+
+def _split_nll_sums(logits, tokens, mask, cfg: ModelConfig, v0: int, mesh,
+                    rows, vdim: int | None):
+    """:func:`_nll_sums` of this rank's rows of the logits and its slice of
+    the vocabulary from token ``v0``, which mesh dim ``vdim`` splits (None:
+    the whole vocabulary here): the padded columns masked by their global
+    index, the log-sum-exp split over ``vdim``, the gold logit taken on
+    the rank whose slice holds the target (0 elsewhere) and summed over
+    it.  ``rows``: the placements of a (B, ...) tensor split by rows."""
+    dev = logits.device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    prefix = logits.shape[1] - tokens.shape[1]
+    tgt = tokens[:, 1:]
+    lg = logits[:, prefix:-1, :].float()
+    n = lg.shape[-1]
+    if cfg.padded_vocab != cfg.vocab_size:   # mask padded vocab columns
+        pad = torch.arange(v0, v0 + n, device=dev) >= cfg.vocab_size
+        lg = lg.masked_fill(pad, NEG_INF)
+    logz = _split_logz(lg, None if vdim is None else mesh.get_group(vdim))
+    idx = tgt - v0
+    mine = (idx >= 0) & (idx < n)
+    gold = torch.gather(lg, -1, idx.clamp(0, n - 1)[..., None])[..., 0] \
+        .masked_fill(~mine, 0)
+    if vdim is not None:
+        gold = sh.summed(gold, mesh, rows, vdim)
     nll = logz - gold
     mask = torch.ones_like(nll) if mask is None else torch.as_tensor(
         mask, device=dev)[:, 1:].float()

@@ -226,28 +226,61 @@ def _no_attn(p, x, ctx, cache, **kw):
     return x + 0 * sum(t.sum() for t in leaves(p))
 
 
-# (arch, the sublayer whose FLOPs the model axis splits, its stand-in)
-SPLIT_SUBLAYERS = {
-    "deepseek-moe-16b": ("repro_torch.nn.moe", "_expert_ffn", _no_expert_ffn),
-    "qwen3-14b": ("repro_torch.models.lm", "_apply_attn", _no_attn),
+def _no_head(x, head):
+    """The LM head with no matmul (its param still takes a gradient)."""
+    return x.sum(-1, keepdim=True) * 0 + (head * 0).sum(0)
+
+
+def _no_project(x, w):
+    """An attention projection (d -> heads) with no matmul."""
+    lead = x.sum(-1).view(*x.shape[:2], *[1] * (w.dim() - 1))
+    return (lead + w.sum(0).to(x.dtype)) * 0
+
+
+def _no_out_proj(out, wo):
+    """The attention's output projection (heads -> d) with no matmul."""
+    return (out.flatten(2).sum(-1, keepdim=True)
+            + wo.reshape(-1, wo.shape[-1]).sum(0).to(out.dtype)) * 0
+
+
+# the parts whose FLOPs the model axis splits: (module, name, stand-in)s
+SPLIT_PARTS = {
+    "experts": [("repro_torch.nn.moe", "_expert_ffn", _no_expert_ffn)],
+    "attn": [("repro_torch.models.lm", "_apply_attn", _no_attn)],
+    "head": [("repro_torch.models.lm", "_lm_head", _no_head)],
+    "proj": [("repro_torch.models.lm", "_project", _no_project),
+             ("repro_torch.models.lm", "_out_proj", _no_out_proj)],
 }
+# (arch, mode, part): deepseek-moe-16b-smoke's routed experts' FFN and
+# qwen3-14b-smoke's attention sublayers in train and prefill, its LM head
+# in train, its decode q/k/v/o projections
+SPLIT_CASES = [
+    pytest.param("deepseek-moe-16b", mode, "experts",
+                 id=f"deepseek-moe-16b-{mode}") for mode in ("train",
+                                                            "prefill")
+] + [
+    pytest.param("qwen3-14b", mode, "attn", id=f"qwen3-14b-{mode}")
+    for mode in ("train", "prefill")
+] + [
+    pytest.param("qwen3-14b", "train", "head", id="qwen3-14b-train-head"),
+    pytest.param("qwen3-14b", "decode", "proj", id="qwen3-14b-decode-proj"),
+]
 
 
-@pytest.mark.parametrize("mode", ["train", "prefill"])
-@pytest.mark.parametrize("arch", sorted(SPLIT_SUBLAYERS))
-def test_model_axis_splits_sublayer_flops(arch, mode, monkeypatch):
-    """The FLOPs of deepseek-moe-16b-smoke's routed experts' FFN and of
-    qwen3-14b-smoke's attention sublayers (q/k/v/o and the scores), forward
-    and backward: per card of a fake (2,2,2) mesh, one device's (a
-    (1,1,1) mesh) / pod·data·model = 8, exactly, as the groups (64 tokens
-    a rank in train, 32 in prefill, of 16 a group), the experts (8 over a
-    model axis of 2) and the positions (32) divide evenly.  A sublayer's
-    FLOPs: the step's less the step's with the sublayer's matmuls taken
-    out."""
+@pytest.mark.parametrize("arch,mode,part", SPLIT_CASES)
+def test_model_axis_splits_sublayer_flops(arch, mode, part, monkeypatch):
+    """The FLOPs of deepseek-moe-16b-smoke's routed experts' FFN, of
+    qwen3-14b-smoke's attention sublayers (q/k/v/o and the scores) and LM
+    head, forward and backward, and of its decode projections (q/k/v/o):
+    per card of a fake (2,2,2) mesh, one device's (a (1,1,1) mesh) /
+    pod·data·model = 8, exactly, as the groups (64 tokens a rank in train,
+    32 in prefill, of 16 a group), the experts (8 over a model axis of 2),
+    the positions (32), the vocabulary (256) and the kv heads (2) divide
+    evenly.  A part's FLOPs: the step's less the step's with the part's
+    matmuls taken out."""
     import importlib
     from repro_torch.launch.dryrun import lower_cell
     from repro_torch.launch.mesh import make_mesh
-    module, name, stub = SPLIT_SUBLAYERS[arch]
     cfg = get_config(arch + "-smoke")
     shape = next(c for c in CELLS if c.mode == mode)
     flops = {}
@@ -257,10 +290,11 @@ def test_model_axis_splits_sublayer_flops(arch, mode, monkeypatch):
                              device="cpu")
             step = lower_cell(cfg, shape, mesh)[0].flops
             with monkeypatch.context() as mp:
-                mp.setattr(importlib.import_module(module), name, stub)
+                for module, name, stub in SPLIT_PARTS[part]:
+                    mp.setattr(importlib.import_module(module), name, stub)
                 rest = lower_cell(cfg, shape, mesh)[0].flops
         flops[world] = step - rest
-    print(f"{arch} {mode} {name}: one device {flops[1]:.6e}, a card of "
+    print(f"{arch} {mode} {part}: one device {flops[1]:.6e}, a card of "
           f"(2,2,2) {flops[8]:.6e}")
     assert flops[8] > 0 and flops[8] * 8 == flops[1]
 

@@ -285,6 +285,61 @@ def test_model_axis_splits_experts_and_queries(suite, arch):
             ((1, e, capacity(cfg, ranks.SERVE_B), d), (e, d, ff // m))]))
 
 
+@pytest.mark.parametrize("arch", ranks.ARCHS)
+def test_model_axis_splits_vocab_and_heads(suite, serve12, arch):
+    """What each of the 8 ranks of (2,2,2) computed, and rank 0 of the
+    (1,2) serve: in train and serve the embedding of its padded_vocab /
+    model rows and the LM head of as many columns, and in train the loss
+    over them; at decode (the projections of one position) its q, k and v
+    projections over K / model kv heads."""
+    cfg = get_config(arch)
+    rec = suite["splits"][arch]
+    for mode in ("train", "serve"):
+        for r in rec[mode]:
+            want = ranks.vocab_calls(cfg, 2, mode == "train")
+            assert r["vocab"] == want, r["vocab"]
+    for r in rec["serve"] + [serve12[(arch, "12")]["probe"]]:
+        assert ranks.decode_proj(r) == ranks.decode_proj_want(cfg, 2), \
+            r["proj"]
+    assert sorted(set(serve12[(arch, "12")]["probe"]["vocab"])) == \
+        ranks.vocab_calls(cfg, 2, False)
+
+
+def _padded_vocab_checks(r, exact: bool):
+    """The padded-vocabulary loss and gradients on a mesh against one
+    device's: equal (``exact``) or within RTOL and REL of each leaf's
+    largest gradient; the padded columns' gradients 0."""
+    from repro_torch.nn.layers import leaves as lv
+    (loss, grads), (want, wgrads) = r["mesh"], r["single"]
+    assert r["padded"] == 256
+    np.testing.assert_allclose(loss, want, rtol=0 if exact else RTOL)
+    for g, e in zip(lv(grads), lv(wgrads)):
+        tol = 0.0 if exact else REL * float(e.abs().max())
+        torch.testing.assert_close(g, e, rtol=0, atol=tol)
+    pad = slice(ranks.PADDED_VOCAB, None)
+    assert not grads["embed"][pad].any()
+    if "lm_head" in grads:
+        assert not grads["lm_head"][:, pad].any()
+
+
+@pytest.mark.parametrize("tie", [False, True], ids=["head", "tied"])
+def test_padded_vocab_loss_on_mesh(suite, tie):
+    """``lm_loss`` of a 250-token vocabulary (padded to 256: the padded
+    columns in the last model rank's slice), with its own LM head or the
+    table tied as the head, on (2,2,2): loss and gradients equal one
+    device's within RTOL and REL."""
+    _padded_vocab_checks(suite["padded_vocab"][tie], exact=False)
+
+
+@pytest.mark.parametrize("tie", [False, True], ids=["head", "tied"])
+def test_padded_vocab_loss_world1_exact(world1, tie):
+    """The same on a world-1 gloo mesh (1,1,1), whose split log-softmax
+    runs on a model group of one: equal to one device's, bit for bit."""
+    from repro_torch.launch.mesh import make_mesh
+    m = make_mesh((1, 1, 1), ("pod", "data", "model"), device="cpu")
+    _padded_vocab_checks(ranks.padded_vocab_loss(m, True, tie), exact=True)
+
+
 @pytest.mark.parametrize("model", [2, 4])
 def test_lse_merge_across_ranks(suite, model):
     cases = suite["lse"][model]

@@ -294,6 +294,27 @@ def test_model_axis_splits_queries(suite, arch):
         assert r["attn"] == _attn_calls(cfg, ranks.SERVE_S), r["attn"]
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_axis_splits_vocab_and_heads(suite, serve12, arch):
+    """What each rank of (2,2,2) computed, and rank 0 of the (1,2)
+    serve: in train and serve the embedding of its padded_vocab / model
+    rows and the LM head of as many columns, and in train the loss over
+    them; at decode its q, k and v projections over K / model kv heads
+    (MQA: q over G / model groups), the audio decoder's cross-attention's
+    q too; none for the ssm."""
+    cfg = get_config(arch)
+    rec = suite["splits"][arch]
+    for mode in ("train", "serve"):
+        for r in rec[mode]:
+            want = ranks.vocab_calls(cfg, 2, mode == "train")
+            assert r["vocab"] == want, r["vocab"]
+    for r in rec["serve"] + [serve12[(arch, "12")]["probe"]]:
+        assert ranks.decode_proj(r) == ranks.decode_proj_want(cfg, 2), \
+            r["proj"]
+    assert sorted(set(serve12[(arch, "12")]["probe"]["vocab"])) == \
+        ranks.vocab_calls(cfg, 2, False)
+
+
 @pytest.mark.parametrize("mesh", ["222", "12"])
 def test_hybrid_ring_decode_wraps(suite, serve12, ref, mesh):
     """Prompt 8, then 12 decode steps through positions 8..19 of the

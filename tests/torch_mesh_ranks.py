@@ -234,13 +234,19 @@ def serve_inputs(cfg, s: int = SERVE_S, n: int = SERVE_N):
 def probe():
     """What this rank computes while the block runs: each call of the
     experts' FFN as (its capacity buffer's shape (G, E, C, d), ``wi``'s
-    shape (E, d, ff)) under ``"experts"``, and each train or prefill
+    shape (E, d, ff)) under ``"experts"``; each train or prefill
     attention as (its queries, its keys and values, causal) under
-    ``"attn"``."""
+    ``"attn"``; each attention projection as (its positions, the weight's
+    shape (d, *heads)) under ``"proj"``; the mesh's embedding lookup, LM
+    head and loss log-sum-exp as ("embed", its table's shape), ("head",
+    the head's shape (d, V)) and ("loss", (its logit columns,)) under
+    ``"vocab"``."""
     from repro_torch.models import lm
     from repro_torch.nn import moe
-    rec: dict = {"experts": [], "attn": []}
-    ffn, attn = moe._expert_ffn, lm.gqa_attention
+    rec: dict = {"experts": [], "attn": [], "proj": [], "vocab": []}
+    saved = (moe._expert_ffn, lm.gqa_attention, lm._project,
+             lm._vocab_embed, lm._lm_head, lm._split_logz)
+    ffn, attn, project, embed, head, logz = saved
 
     def ffn_probe(p, x):
         rec["experts"].append((tuple(x.shape), tuple(p["wi"].shape)))
@@ -250,11 +256,59 @@ def probe():
         rec["attn"].append((q.shape[1], k.shape[1], kw.get("causal", True)))
         return attn(q, k, v, **kw)
 
-    moe._expert_ffn, lm.gqa_attention = ffn_probe, attn_probe
+    def project_probe(x, w):
+        rec["proj"].append((x.shape[1], tuple(w.shape)))
+        return project(x, w)
+
+    def embed_probe(table, tokens, v0):
+        rec["vocab"].append(("embed", tuple(table.shape)))
+        return embed(table, tokens, v0)
+
+    def head_probe(x, w):
+        rec["vocab"].append(("head", tuple(w.shape)))
+        return head(x, w)
+
+    def logz_probe(lg, group):
+        rec["vocab"].append(("loss", (lg.shape[-1],)))
+        return logz(lg, group)
+
+    (moe._expert_ffn, lm.gqa_attention, lm._project, lm._vocab_embed,
+     lm._lm_head, lm._split_logz) = (ffn_probe, attn_probe, project_probe,
+                                     embed_probe, head_probe, logz_probe)
     try:
         yield rec
     finally:
-        moe._expert_ffn, lm.gqa_attention = ffn, attn
+        (moe._expert_ffn, lm.gqa_attention, lm._project, lm._vocab_embed,
+         lm._lm_head, lm._split_logz) = saved
+
+
+def decode_proj(rec) -> list:
+    """The weight shapes of a ``probe`` record's projections of one
+    position (decode's), each once."""
+    return sorted({w for s, w in rec["proj"] if s == 1})
+
+
+def decode_proj_want(cfg, m: int) -> list:
+    """The weight shapes of decode's q, k and v projections on a rank of a
+    model axis of ``m`` that splits the heads: K / m kv heads (or, under
+    MQA, q's G / m groups, k and v whole); none for a model without
+    attention (the ssm family)."""
+    if cfg.family == "ssm":
+        return []
+    d, k, hd = cfg.d_model, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = cfg.n_heads // k
+    if k == 1:
+        return sorted({(d, 1, g // m, hd), (d, 1, hd)})
+    return sorted({(d, k // m, g, hd), (d, k // m, hd)})
+
+
+def vocab_calls(cfg, m: int, train: bool) -> list:
+    """Each rank's ``probe`` "vocab" records on a model axis of ``m``: the
+    embedding's padded_vocab / m rows, the head's as many columns, and in
+    train the loss's log-sum-exp over as many logit columns."""
+    v, d = cfg.padded_vocab // m, cfg.d_model
+    calls = [("embed", (v, d)), ("head", (d, v))]
+    return sorted(calls + [("loss", (v,))] * train)
 
 
 def every_rank(rec) -> list:
@@ -272,11 +326,50 @@ def _split_records(train, serve) -> dict:
             for mode, rec in (("train", train), ("serve", serve))}
 
 
+# a vocabulary that is not a multiple of 128: padded to 256, its 6 padded
+# columns fall in the last model rank's slice on a model axis of 2
+PADDED_VOCAB = 250
+
+
+def padded_vocab_loss(mesh, single: bool, tie: bool = False) -> dict:
+    """``lm.lm_loss`` and its gradients (``trainer.loss_and_grads``) of
+    ARCHS[0] with ``vocab_size`` PADDED_VOCAB (and ``tie_embeddings`` if
+    ``tie``: the head is the table's slice transposed), at seed-0 params,
+    over SyntheticLM's batch 0 (a loss mask from a seed zeroing some
+    targets): on ``mesh`` under its train rules and, if ``single``, on one
+    device; each (loss, whole gradients)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import (param_shardings, shard_tree,
+                                               use_rules)
+    from repro_torch.train.trainer import (loss_and_grads, to_device,
+                                           train_rules)
+    cfg = dataclasses.replace(get_config(ARCHS[0]), vocab_size=PADDED_VOCAB,
+                              tie_embeddings=tie)
+    params = lm.init_model(cfg, 0, device="cpu")
+    batch = dict(train_batch(cfg, 0), loss_mask=(np.random.default_rng(
+        9).random((TRAIN_BATCH, TRAIN_SEQ)) > 0.2).astype(np.float32))
+    batch = to_device(batch, "cpu")
+    rules = train_rules(mesh)
+    placed = shard_tree(params, param_shardings(
+        lm.model_spec_tree(cfg), rules, shapes=params))
+    with use_rules(rules):
+        loss, grads = loss_and_grads(placed, batch, cfg)
+    out = dict(mesh=(float(loss), _full(grads)), padded=cfg.padded_vocab)
+    if single:
+        loss, grads = loss_and_grads(params, batch, cfg)
+        out["single"] = (float(loss), _full(grads))
+    return out
+
+
 # -- programs ------------------------------------------------------------------
 
 def mesh_suite(rank, world, workdir, ref_path):
     """World 8: the sharded train step (every variant, both configs) and
-    the serve steps on (2,2,2); the lse merge at model 2 and 4; a
+    the serve steps on (2,2,2); the loss of a padded vocabulary
+    (``padded_vocab_loss``, the head its own or tied) on (2,2,2); the lse
+    merge at model 2 and 4; a
     checkpoint saved on (4,2) and restored onto (2,4); compressed_psum;
     2 steps on (4,2) saved for the elastic restart."""
     from repro_torch.ckpt.checkpoint import restore_checkpoint, save_checkpoint
@@ -318,6 +411,8 @@ def mesh_suite(rank, world, workdir, ref_path):
                                                local_slots=slots)
             out.setdefault("splits", {})[arch] = splits
     out["seconds_train_serve"] = time.perf_counter() - t0
+    out["padded_vocab"] = {tie: padded_vocab_loss(m222, rank == 0, tie)
+                           for tie in (False, True)}
     out["lse"] = {n: lse_merge(make_mesh(shape, ("data", "model"),
                                          device="cpu"))
                   for n, shape in ((2, (4, 2)), (4, (2, 4)))}
@@ -424,7 +519,8 @@ def elastic_second(rank, world, workdir, ref_path):
 def serve_12(rank, world, workdir, ref_path):
     """World 2: the serve steps on (1,2) ("data", "model"), of SERVE_S
     prompt tokens and of SERVE_S - 1 (``"12_odd"``: the model axis splits
-    prefill's positions unevenly, 8 and 7)."""
+    prefill's positions unevenly, 8 and 7); rank 0's ``probe`` records of
+    each."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     ref = dict(np.load(ref_path))
@@ -436,9 +532,11 @@ def serve_12(rank, world, workdir, ref_path):
         for name, s in (("12", SERVE_S), ("12_odd", SERVE_S - 1)):
             prompt, dec = serve_inputs(cfg, s)
             single = _serve(cfg, init, prompt, dec) if rank == 0 else None
-            got, slots = _serve(cfg, init, prompt, dec, mesh=m12)
+            with probe() as rec:
+                got, slots = _serve(cfg, init, prompt, dec, mesh=m12)
             out[(arch, name)] = dict(mesh=got, single=None if single is None
-                                     else single[0], local_slots=slots)
+                                     else single[0], local_slots=slots,
+                                     probe=rec)
     return out
 
 
