@@ -2442,18 +2442,26 @@ class split_calls:
     (``lm._vocab_param`` with ``MeshCtx.vocab``), ``vocab_losses``, the
     log-sum-exps split over the model axis (``lm._split_logz`` with a
     group); ``head_splits``, decode attentions split by heads
-    (``lm._heads_attn``)."""
+    (``lm._heads_attn``); ``rglru_splits``, ``mlstm_splits`` and
+    ``slstm_splits``, recurrent blocks run on this rank's slice of their
+    channels (``lm._apply_rglru`` with ``MeshCtx.rnn``, ``lm._apply_mlstm``
+    with ``MeshCtx.mlstm``, ``lm._apply_slstm`` with
+    ``MeshCtx.slstm_ff``)."""
 
     NAMES = ("_seq_gather", "_moe", "_vocab_param", "_split_logz",
-             "_heads_attn")
+             "_heads_attn", "_apply_rglru", "_apply_mlstm", "_apply_slstm")
+    # the recurrent blocks' counters and the MeshCtx field of their split
+    RECURRENT = (("rglru_splits", "rnn"), ("mlstm_splits", "mlstm"),
+                 ("slstm_splits", "slstm_ff"))
 
     def __enter__(self):
         from repro_torch.models import lm
         self.lm = lm
         self.n = dict(seq_gathers=0, expert_splits=0, vocab_embeds=0,
-                      vocab_heads=0, vocab_losses=0, head_splits=0)
+                      vocab_heads=0, vocab_losses=0, head_splits=0,
+                      rglru_splits=0, mlstm_splits=0, slstm_splits=0)
         self.saved = [getattr(lm, name) for name in self.NAMES]
-        gather, moe, vocab_param, logz, heads = self.saved
+        gather, moe, vocab_param, logz, heads = self.saved[:5]
 
         def seq_gather(*a, **kw):
             self.n["seq_gathers"] += 1
@@ -2477,8 +2485,17 @@ class split_calls:
             self.n["head_splits"] += 1
             return heads(*a, **kw)
 
+        def recurrent(block, counter, field):
+            def counted(p, xn, ctx, cache):
+                self.n[counter] += ctx.mesh is not None and getattr(
+                    ctx.mesh, field) is not None
+                return block(p, xn, ctx, cache)
+            return counted
+
+        blocks = [recurrent(fn, *rc) for fn, rc in zip(self.saved[5:],
+                                                       self.RECURRENT)]
         for name, fn in zip(self.NAMES, (seq_gather, moe_layer, vocab_slice,
-                                         split_logz, heads_attn)):
+                                         split_logz, heads_attn, *blocks)):
             setattr(lm, name, fn)
         return self.n
 
@@ -2614,13 +2631,19 @@ def mesh_check_fp32(arch, mesh, dev, strict: bool = True, overrides=None,
         # over the model axis (moe), the embedding and the LM head in
         # their vocabulary slice, the loss's log-sum-exp split (train),
         # decode's attention split by heads (serve, every family but the
-        # ssm)
+        # ssm), the recurrences on their channel slices (hybrid: the
+        # RG-LRU; ssm: the mLSTM and, where the config holds one, the
+        # sLSTM's up/down)
+        kinds = {k for pat, _ in lm.pattern_stacks(cfg) for k in pat}
         for mode, n_calls in rec["splits"].items():
             want = dict(seq_gathers=cfg.family != "ssm",
                         expert_splits=cfg.family == "moe",
                         vocab_embeds=True, vocab_heads=True,
                         vocab_losses=mode == "train",
-                        head_splits=mode == "serve" and cfg.family != "ssm")
+                        head_splits=mode == "serve" and cfg.family != "ssm",
+                        rglru_splits="rec" in kinds,
+                        mlstm_splits="mlstm" in kinds,
+                        slstm_splits="slstm" in kinds)
             if any(bool(n_calls[k]) != v for k, v in want.items()):
                 raise AssertionError(f"mesh {arch} {mode}: split calls "
                                      f"{n_calls}, want {want}")
@@ -2930,6 +2953,107 @@ def mesh_phase(dev, card: str, train_single=None, serve_single=None,
                 family_cases=fam_cases, **summary), runs
 
 
+# world-1 mesh serves timed against another checkout in one call
+# (``mesh_ab``): (arch, decoder prompt, decode steps, steps not timed)
+AB_SERVES = (("recurrentgemma-9b", LM_PROMPT, 18, 2),
+             ("xlstm-1.3b", LM_PROMPT, 18, 2))
+AB_ORDER = ("parent", "change", "change", "parent")
+AB_TIMEOUT_S = 900
+
+
+def mesh_serve_times() -> list[dict]:
+    """The recurrent families' world-1 mesh serves (AB_SERVES) on an
+    in-process NCCL group of one rank and a (1,1,1) mesh, bf16 at full
+    width and depth (seed 0), LM_BATCH prompts: the timed prefill after a
+    warm-up prefill, then greedy decode steps, the last ones timed
+    together; a ``mesh_ab_serve`` line each.  It calls the serve steps'
+    entry points alone, so it times whichever checkout's ``src`` comes
+    first on ``sys.path``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import local
+    from repro_torch.train import serve
+    dev = "cuda"
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    recs = []
+    try:
+        mesh = make_mesh(MESH_SHAPE, MESH_AXES)
+        rules = serve.serve_rules(mesh)
+        for arch, s, n, warm in AB_SERVES:
+            cfg = get_config(arch)
+            b, max_seq = LM_BATCH, s + n + 1
+            params = serve.init_serve_params(cfg, rules, 0)
+            cache = serve.place_cache(cfg, rules, b, max_seq)
+            inp = _family_inputs(cfg, b, s, np.random.default_rng(0), dev)
+            prefill = serve.make_prefill_step(cfg, b, max_seq, mesh=mesh)
+            decode = serve.make_decode_step(cfg, b, max_seq, mesh=mesh)
+            prefill(params, cache, inp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, cache, inp)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            tok = torch.argmax(local(logits), -1)[:, None]
+            for i in range(n):
+                if i == warm:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                logits, cache = decode(params, cache, tok)
+                tok = torch.argmax(local(logits), -1)[:, None]
+            torch.cuda.synchronize()
+            rec = dict(arch=arch, batch=b, prompt=s, prefill_ms=prefill_ms,
+                       decode_ms_per_step=(time.perf_counter() - t0) * 1e3
+                       / (n - warm), decode_steps_timed=n - warm,
+                       logits_finite=bool(torch.isfinite(
+                           local(logits)).all()))
+            print(f"mesh_ab_serve {json.dumps(rec)}", flush=True)
+            recs.append(rec)
+            del params, cache, logits
+            release()
+    finally:
+        dist.destroy_process_group()
+    return recs
+
+
+def mesh_ab(parent) -> list[dict]:
+    """``mesh_serve_times`` of the checkout at ``parent`` (unpacked) and
+    of this one, in AB_ORDER, each in a fresh process that builds its
+    checkout's kernels first; a ``mesh_ab`` line a run, beside the card's
+    name and power limit.  Fails if a run fails or a logit is not
+    finite."""
+    card = card_line()
+    roots = {"parent": Path(parent).resolve(), "change": ROOT}
+    out = []
+    for i, which in enumerate(AB_ORDER, 1):
+        code = (f"import sys; sys.path[:0] = [{str(roots[which] / 'src')!r},"
+                f" {str(ROOT)!r}]; from repro_torch.kernels import backend; "
+                f"backend.build(); import chip_smoke; "
+                f"chip_smoke.mesh_serve_times()")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                              capture_output=True, text=True,
+                              timeout=AB_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"mesh_ab run {i} ({which}): rc "
+                                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        recs = [json.loads(line.split(" ", 1)[1])
+                for line in proc.stdout.splitlines()
+                if line.startswith("mesh_ab_serve ")]
+        if len(recs) != len(AB_SERVES) or not all(r["logits_finite"]
+                                                  for r in recs):
+            raise AssertionError(f"mesh_ab run {i} ({which}): {recs}")
+        for r in recs:
+            print(f"mesh_ab {json.dumps(dict(run=i, tree=which, **r))}")
+        out.append(dict(run=i, tree=which, seconds=time.perf_counter() - t0,
+                        serves=recs))
+    print(card)
+    return out
+
+
 def _multi_card_rank(rank, world, port, out_dir):
     """One NCCL rank of ``mesh_multi_card``."""
     import torch
@@ -2994,8 +3118,8 @@ DRYRUN_CELL_TIMEOUT_S = 600
 # 60 cells of 2-50 s of fake dispatch each took 198-241 s on an H100
 # host's 8 cores, not the 120 s first aimed at
 DRYRUN_LIMIT_S = 300.0
-# every cell's counts before the model axis split the vocabulary and
-# decode's heads (commit 8fee395's dry-run on fake tensors, written by
+# every cell's counts before the model axis split the recurrences
+# (commit 6c68b88's dry-run on fake tensors, written by
 # ``dryrun_baseline``)
 DRYRUN_BASELINE = ROOT / "chip_smoke_dryrun_baseline.json"
 

@@ -50,12 +50,18 @@ model axis's compute split as the rules place it:
   ``wo`` (``_heads_attn``);
 * the embedding and the LM head over ``vocab``: each rank looks up the
   tokens of its rows of the table and computes its columns of the logits,
-  which :func:`lm_loss` reduces by a log-softmax split over the same axis.
+  which :func:`lm_loss` reduces by a log-softmax split over the same axis;
+* the recurrences in their states' own slices, which no layer gathers:
+  the RG-LRU over ``rnn`` (its channels, with one all-gather of u for its
+  gates' (rnn, rnn) products, ``_apply_rglru``), the mLSTM over ``ff``
+  (u, z's set and the conv on its di slice, q and k whole from
+  row-parallel products summed, v, h and C on its slice of every head's
+  value dim, an RMSNorm split over di, ``_apply_mlstm``), the sLSTM's
+  up/down over ``ff`` (its recurrence whole, as its cache,
+  ``_apply_slstm``).
 
-The other params are gathered whole, and recurrent states that the rules
-split along their channels are gathered whole for the layer and written
-back to this rank's slice (``_state_whole``).  Every split runs alike on
-a model axis of one.  The frontends run on this rank's rows:
+The other params are gathered whole.  Every split runs alike on a model
+axis of one.  The frontends run on this rank's rows:
 the audio encoder as a stack of mesh layers, the vlm's patch projection.
 ``abstract_model`` and ``model_spec_tree`` give the rules their shapes and
 names.
@@ -92,6 +98,7 @@ from ..nn.layers import (ParamDef, abstract_params, apply_norm, apply_rope,
                          rmsnorm, spec_tree, swish, torch_dtype)
 from ..nn.moe import (_shared_ffn, group_size, group_tokens, moe_defs,
                       moe_ffn, routed_experts)
+from ..parallel import collectives as coll
 from ..parallel import sharding as sh
 from ..parallel.sharding import shard_act
 from ..nn.recurrent import (causal_conv1d, mlstm_defs, mlstm_sequence,
@@ -289,6 +296,15 @@ class MeshCtx:
     # for K, 2 for MQA's G) when the rules put ``act_heads`` on it and
     # split the attention params by heads (decode's projections), else None
     heads: tuple[int, int] | None = None
+    # the model axis's mesh dim where the rules split the recurrences'
+    # channels over it (``fit_spec`` of their own params): the RG-LRU's
+    # ``rnn`` (``w_x``'s columns, its states' channels); the mLSTM's ``ff``
+    # (``w_up``'s columns, its conv state's channels) with its cache's
+    # value dim (C's dv); the sLSTM's up/down ``ff``, where the rules
+    # split ``act_ff`` as the MLP's.  Else None
+    rnn: int | None = None
+    mlstm: int | None = None
+    slstm_ff: int | None = None
 
     def parted(self, dim: int) -> tuple:
         """The gradient placements of a gathered param whose gradient is a
@@ -299,6 +315,11 @@ class MeshCtx:
         from torch.distributed.tensor import Partial
         return tuple(Partial() if d == dim else p
                      for d, p in enumerate(self.grad))
+
+    def group(self, dim: int) -> tuple:
+        """(process group, size, this rank's index) of mesh dim ``dim``."""
+        return (self.mesh.get_group(dim), self.mesh.size(dim),
+                self.mesh.get_local_rank(dim))
 
 
 @dataclasses.dataclass
@@ -622,35 +643,138 @@ def _store(cache, new: dict) -> None:
             cache[name].copy_(t)
 
 
+def _split_of(ctx: Ctx, name: str):
+    """(group, size, rank) of the model axis where it splits the block
+    that ``name`` (a ``MeshCtx`` field) names, else None."""
+    dim = None if ctx.mesh is None else getattr(ctx.mesh, name)
+    return None if dim is None else ctx.mesh.group(dim)
+
+
+def _head_cols(t, dim: int, heads: int, m: int, r: int):
+    """Rank ``r``'s strided set of ``t``'s (heads x dv) dim ``dim``: its
+    slice r of m of every head's dv (a view)."""
+    dim %= t.dim()
+    return t.unflatten(dim, (heads, m, -1)).select(dim + 1, r) \
+        .flatten(dim, dim + 1)
+
+
+def _apply_rglru(p, xn, ctx: Ctx, cache):
+    """The RG-LRU block (``rglru_block``).  Where the model axis splits its
+    channels (``MeshCtx.rnn``: ``p``'s channel leaves and ``cache`` are
+    this rank's slice), xn's gradient is summed over the axis, the gates'
+    (rnn, rnn) products take every channel's u (one all-gather; their
+    weights' columns of this slice) and this rank's part of the output is
+    summed."""
+    split = _split_of(ctx, "rnn")
+    if split is None:
+        y, new = rglru_block(p, xn, ctx.cfg, cache=cache)
+        _store(cache, new)
+        return y
+    group, m, r = split
+    xn = coll.grads_summed(xn, group)
+
+    def gathered(u):
+        b, s, n = u.shape
+        whole = coll.gather(u, group, m).permute(1, 2, 0, 3)
+        return whole.reshape(b, s, m * n), slice(r * n, (r + 1) * n)
+
+    y, new = rglru_block(p, xn, ctx.cfg, cache=cache, split=gathered)
+    _store(cache, new)
+    return coll.sum_alike(y, group)
+
+
+def _mlstm_gates(cell, xn, hh: int):
+    """The input gate's pre-activation and the log-sigmoid forget gate,
+    (B, S, H) each in float32."""
+    gates = xn @ cell["w_if"] + cell["b_if"]
+    return gates[..., :hh].float(), \
+        torch.nn.functional.logsigmoid(gates[..., hh:].float())
+
+
+def _split_rmsnorm(x, gamma, group, m: int, eps: float = 1e-6):
+    """``rmsnorm`` of x, whose last dim the ``m`` ranks of ``group`` split
+    (``gamma`` this rank's entries): ``rmsnorm``'s ops, each rank's mean
+    of squares summed over the ranks and divided by m between the mean
+    and the rsqrt (at m = 1 the same bits as ``rmsnorm``)."""
+    dt = x.dtype
+    x = x.float()
+    ms = coll.sum_parts(torch.mean(x * x, dim=-1, keepdim=True), group) / m
+    x = x * torch.rsqrt(ms + eps)
+    return (x * gamma.float()).to(dt)
+
+
 def _apply_mlstm(cell, xn, ctx: Ctx, cache):
+    """The mLSTM cell.  Where the model axis splits it (``MeshCtx.mlstm``),
+    as the rules place its params and cache: u and the conv on this rank's
+    contiguous slice of ``ff`` (``w_up``, ``conv_w`` and the conv state's);
+    q and k whole on every rank, from row-parallel products of ``wq`` and
+    ``wk`` in their ``ff_in`` slice summed by one all-reduce; v on this
+    rank's strided set of di (its slice of every head's dv, as C is
+    split), from ``wv``'s row-parallel product reduce-scattered; the
+    gates, n, m and the normaliser alike on every rank; h, z, ``hnorm`` and
+    ``w_down``'s rows on the strided set (the last three gathered whole),
+    the RMSNorm over di split (``_split_rmsnorm``), the output's parts
+    summed."""
     cfg = ctx.cfg
     b, s, d = xn.shape
     di = int(cfg.proj_factor * d)
     hh = cfg.n_heads
     dk = di // hh
+    split = _split_of(ctx, "mlstm")
+    if split is not None:
+        group, m, r = split
+        xn = coll.grads_summed(xn, group)
     u = xn @ cell["w_up"]
-    z = xn @ cell["w_gate"]
+    z = xn @ (cell["w_gate"] if split is None else
+              _head_cols(cell["w_gate"], -1, hh, m, r))
     cu, new_conv = causal_conv1d(u, cell["conv_w"],
                                  None if cache is None else cache["conv"])
     cu = swish(cu)
-    q = (cu @ cell["wq"]).view(b, s, hh, dk)
+    if split is None:
+        q, k = cu @ cell["wq"], cu @ cell["wk"]
+        v = (u @ cell["wv"]).view(b, s, hh, dk)
+    else:
+        qk = coll.sum_parts(torch.cat([cu @ cell["wq"], cu @ cell["wk"]],
+                                      -1), group)
+        q, k = qk[..., :di], qk[..., di:]
+        v = coll.scatter_sum((u @ cell["wv"]).view(b, s, hh, m, dk // m)
+                             .permute(3, 0, 1, 2, 4), group)
+    q = q.view(b, s, hh, dk)
     # float32, as the reference's division by a numpy float64 promotes it
-    k = (cu @ cell["wk"]).view(b, s, hh, dk).float() / math.sqrt(dk)
-    v = (u @ cell["wv"]).view(b, s, hh, dk)
-    gates = xn @ cell["w_if"] + cell["b_if"]
-    i_gate = gates[..., :hh].float()
-    lf = torch.nn.functional.logsigmoid(gates[..., hh:].float())
+    k = k.view(b, s, hh, dk).float() / math.sqrt(dk)
+    i_gate, lf = _mlstm_gates(cell, xn, hh)
     state = None if cache is None else (cache["C"], cache["n"], cache["m"])
     if ctx.mode == "decode":
-        h, (C, n, m) = mlstm_step(q[:, 0], k[:, 0], v[:, 0], i_gate[:, 0],
-                                  lf[:, 0], state)
+        h, (C, n, m_) = mlstm_step(q[:, 0], k[:, 0], v[:, 0], i_gate[:, 0],
+                                   lf[:, 0], state)
         h = h[:, None]
     else:
-        h, (C, n, m) = mlstm_sequence(q, k, v, i_gate, lf, state=state,
-                                      chunk=cfg.mlstm_chunk)
-    _store(cache, {"C": C, "n": n, "m": m, "conv": new_conv})
-    h = rmsnorm(h.reshape(b, s, di), cell["hnorm"])
-    return (h * swish(z)) @ cell["w_down"]
+        h, (C, n, m_) = mlstm_sequence(q, k, v, i_gate, lf, state=state,
+                                       chunk=cfg.mlstm_chunk)
+    _store(cache, {"C": C, "n": n, "m": m_, "conv": new_conv})
+    h = h.reshape(b, s, -1)
+    if split is None:
+        return (rmsnorm(h, cell["hnorm"]) * swish(z)) @ cell["w_down"]
+    h = _split_rmsnorm(h, _head_cols(cell["hnorm"], 0, hh, m, r), group, m)
+    y = (h * swish(z)) @ _head_cols(cell["w_down"], 0, hh, m, r)
+    return coll.sum_alike(y, group)
+
+
+def _apply_slstm(cell, xn, ctx: Ctx, cache):
+    """The sLSTM cell: its recurrence whole on every rank (its cache and
+    per-head ``r`` are whole by the rules), then its up/down MLP, which
+    the model axis splits over ``ff`` as the MLP's (``MeshCtx.slstm_ff``):
+    h's gradient summed over the axis, the output's parts summed."""
+    state = None if cache is None else (cache["c"], cache["n"], cache["h"],
+                                        cache["m"])
+    h, (c_, n_, h_, m_) = slstm_sequence(cell, xn, ctx.cfg.n_heads,
+                                         state=state)
+    _store(cache, {"c": c_, "n": n_, "h": h_, "m": m_})
+    split = _split_of(ctx, "slstm_ff")
+    if split is None:
+        return gelu(h @ cell["up"]) @ cell["down"]
+    h = coll.grads_summed(h, split[0])
+    return coll.sum_alike(gelu(h @ cell["up"]) @ cell["down"], split[0])
 
 
 def _moe(p, xn, ctx: Ctx):
@@ -741,20 +865,12 @@ def apply_block(kind: str, p, x, ctx: Ctx, cache):
         return x + _moe(p["moe"], xn, ctx).to(x.dtype)
     xn = apply_norm(x, p["ln"], cfg.norm, 1e-6)
     if kind == "rec":
-        y, new = rglru_block(p["rec"], xn, cfg, cache=cache)
-        _store(cache, new)
+        y = _apply_rglru(p["rec"], xn, ctx, cache)
         return _apply_mlp(p["mlp"], x + y.to(x.dtype), ctx)
     if kind == "mlstm":
         return x + _apply_mlstm(p["cell"], xn, ctx, cache).to(x.dtype)
     if kind == "slstm":
-        cell = p["cell"]
-        state = None if cache is None else (cache["c"], cache["n"],
-                                            cache["h"], cache["m"])
-        h, (c_, n_, h_, m_) = slstm_sequence(cell, xn, cfg.n_heads,
-                                             state=state)
-        _store(cache, {"c": c_, "n": n_, "h": h_, "m": m_})
-        y = gelu(h @ cell["up"]) @ cell["down"]
-        return x + y.to(x.dtype)
+        return x + _apply_slstm(p["cell"], xn, ctx, cache).to(x.dtype)
     raise ValueError(kind)
 
 
@@ -955,9 +1071,28 @@ _HEADS_SPLIT = {1: ("wq", "wk", "wv", "bq", "bk", "bv", "wo"),
                 2: ("wq", "bq", "wo")}
 
 
-def _kept(name: str, mc: MeshCtx, heads: bool = False) -> dict:
-    """{leaf: mesh dim} of a block's subtree ``name`` that stay in their
-    model-axis slice (an attention sublayer's by heads if ``heads``)."""
+# the recurrent blocks' leaves, by (block kind, subtree), that the model
+# axis splits where their ``MeshCtx`` field says: (the field, the leaves
+# kept in their slice, the leaves gathered whole of which each rank uses a
+# part, so that their gradients are summed over the axis: the RG-LRU's
+# gate weights, of which it takes its channels' columns; the mLSTM's
+# gates, which each rank's value slice differentiates, and the strided
+# set of di that it takes of w_gate's columns, hnorm and w_down's rows)
+_REC_SPLIT = {("rec", "rec"): ("rnn", ("w_x", "w_gate", "conv_w", "lam",
+                                       "w_out"), ("w_a", "w_i")),
+              ("mlstm", "cell"): ("mlstm", ("w_up", "conv_w", "wq", "wk",
+                                            "wv"),
+                                  ("w_gate", "hnorm", "w_down", "w_if",
+                                   "b_if")),
+              ("slstm", "cell"): ("slstm_ff", ("up", "down"), ())}
+
+
+def _kept(name: str, mc: MeshCtx, heads: bool = False,
+          kind: str | None = None) -> tuple[dict, dict]:
+    """({leaf: mesh dim} of a block's subtree ``name`` that stay in their
+    model-axis slice (an attention sublayer's by heads if ``heads``; a
+    recurrent block ``kind``'s by its channels), {leaf: mesh dim} of those
+    gathered whole whose gradients are parts summed over that dim)."""
     out = {}
     if mc.ff_dim is not None:
         out.update(dict.fromkeys(_FF_SPLIT.get(name, ()), mc.ff_dim))
@@ -965,29 +1100,37 @@ def _kept(name: str, mc: MeshCtx, heads: bool = False) -> dict:
         out.update(dict.fromkeys(_EXPERTS_SPLIT, mc.experts[0]))
     if heads and mc.heads is not None and name in _ATTN_SUBLAYERS:
         out.update(dict.fromkeys(_HEADS_SPLIT[mc.heads[1]], mc.heads[0]))
-    return out
+    field, kept, parts = _REC_SPLIT.get((kind, name), (None, (), ()))
+    dim = None if field is None else getattr(mc, field)
+    if dim is None:
+        return out, {}
+    out.update(dict.fromkeys(kept, dim))
+    return out, dict.fromkeys(parts, dim)
 
 
 def _gather_block(tree: dict, layer: int, mc: MeshCtx, seq: bool = False,
-                  keep=None, grad=None, heads: bool = False) -> dict:
+                  keep=None, grad=None, heads: bool = False,
+                  kind: str | None = None) -> dict:
     """A block's layer-``layer`` params on this rank (``_layer_param``):
     the leaves ``_kept`` names stay in their model-axis slice (by heads
-    too where ``heads``: decode).  Their gradients return as ``grad`` says
+    too where ``heads``: decode; a recurrence's by its channels, ``kind``
+    being the block's kind).  Their gradients return as ``grad`` says
     (default ``mc.grad``), and as parts summed over the model axis too
     (``MeshCtx.parted``) for an attention sublayer under a sequence split
-    (``seq``) and for the router where the model axis splits the routed
-    experts."""
+    (``seq``), for the router where the model axis splits the routed
+    experts, and for the recurrences' leaves that ``_kept`` names so."""
+    keep, parted = keep or ({}, {})
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             sub = mc.parted(mc.seq_dim) if seq and k in _ATTN_SUBLAYERS \
                 else grad
-            out[k] = _gather_block(v, layer, mc, seq, _kept(k, mc, heads),
-                                   sub, heads)
+            out[k] = _gather_block(v, layer, mc, seq,
+                                   _kept(k, mc, heads, kind), sub, heads)
         else:
             g = mc.parted(mc.experts[0]) if k == "router" and mc.experts \
-                else grad
-            out[k] = _layer_param(v, layer, mc, (keep or {}).get(k), g)
+                else mc.parted(parted[k]) if k in parted else grad
+            out[k] = _layer_param(v, layer, mc, keep.get(k), g)
     return out
 
 
@@ -1040,71 +1183,24 @@ def _block_input(h, kind: str, ctx: Ctx):
                           else mc.rows).to_local()
 
 
-# block kinds whose cache is recurrent state (the rest hold attention caches)
-_RECURRENT = ("rec", "mlstm", "slstm")
-
-
-def _state_whole(blk: dict, layer: int, mc: MeshCtx):
-    """A recurrent block's layer-``layer`` state on this rank: its batch
-    rows, whole along the channels that the rules split over the model axis
-    (``rec``'s along ``rnn``, ``mlstm``'s along ``ff``: gathered), and a
-    ``write_back()`` that copies this rank's channel slice of each gathered
-    leaf into its local shard."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    out, back = {}, []
-    for name, t in blk.items():
-        loc = t.to_local()[layer]
-        # the stacked (layers, batch, ...) leaf's placements, less layers
-        place = [Shard(p.dim - 1) if isinstance(p, Shard) else p
-                 for p in t.placements]
-        split = [d for d, p in enumerate(place)
-                 if isinstance(p, Shard) and p.dim > 0]
-        if not split:
-            out[name] = loc
-            continue
-        want = [Replicate() if d in split else p for d, p in enumerate(place)]
-        whole = DTensor.from_local(loc, t.device_mesh, place, run_check=False,
-                                   shape=t.shape[1:],
-                                   stride=_strides(t.shape[1:])) \
-            .redistribute(t.device_mesh, want).to_local()
-        out[name] = whole
-        mine = [slice(None)] * whole.dim()
-        for dim in {place[d].dim for d in split}:
-            mine[dim] = slice(*sh.row_range(whole.shape[dim], t.device_mesh,
-                                            place, dim=dim))
-        back.append((loc, whole, tuple(mine)))
-
-    def write_back():
-        for loc, whole, mine in back:
-            loc.copy_(whole[mine])
-
-    return out, write_back
-
-
 def _mesh_layer(x, layer: int, stack_params, stack_cache, pattern,
                 ctx: Ctx):
     """One layer of a stack on a mesh: this rank's rows of ``x`` (an
     attention block's slice of the positions under a sequence split,
     ``_block_input``) and the layer's params (``_gather_block``), the
-    pattern's blocks applied to them with the single-device code
-    (attention caches through this rank's local shards, recurrent states
-    whole along their channels, ``_state_whole``), and the rows back as a
-    DTensor."""
+    pattern's blocks applied to them with the single-device code and the
+    model axis's splits, every cache (attention and recurrent) through
+    this rank's local shards, and the rows back as a DTensor."""
     mc = ctx.mesh
     h = x
     for i, kind in enumerate(pattern):
         key = f"{i}_{kind}"
         h = _block_input(h, kind, ctx)
         gp = _gather_block(stack_params[key], layer, mc, ctx.seq is not None,
-                           heads=ctx.mode == "decode")
-        bc, write_back = None, None
-        if stack_cache is not None and kind in _RECURRENT:
-            bc, write_back = _state_whole(stack_cache[key], layer, mc)
-        elif stack_cache is not None:
-            bc = map_defs(lambda t: sh.local(t)[layer], stack_cache[key])
+                           heads=ctx.mode == "decode", kind=kind)
+        bc = None if stack_cache is None else map_defs(
+            lambda t: sh.local(t)[layer], stack_cache[key])
         h = apply_block(kind, gp, h, ctx, bc)
-        if write_back is not None:
-            write_back()
     return _from_rows(h, mc)
 
 
@@ -1165,11 +1261,37 @@ def _mesh_ctx(rules, cfg: ModelConfig, b: int, cache) -> MeshCtx:
         for ax in (1, 2):
             if "model" in (spec[ax] or ()):
                 heads = (model, ax)
+
+    def fits(names, shape, dim: int) -> bool:
+        """Whether ``fit_spec`` keeps the model axis on dim ``dim`` of a
+        param named ``names`` of ``shape``."""
+        return "model" in (rules.fit_spec(names, shape)[dim] or ())
+
+    d = cfg.d_model
+    rnn = mlstm = slstm_ff = None
+    if cfg.family == "hybrid" and fits(("embed", "rnn"),
+                                       (d, cfg.d_rnn or d), 1):
+        rnn = model
+    if cfg.family == "ssm":
+        di = int(cfg.proj_factor * d)
+        dk = di // cfg.n_heads
+        if fits(("embed", "ff"), (d, di), 1):
+            # C (..., dk, dv) is split along dv where w_up is along di
+            if not fits((None, "ff"), (dk, dk), 1):
+                raise NotImplementedError(
+                    f"{cfg.name}: the model axis splits the mLSTM's di "
+                    f"({di}) but not its value dim ({dk})")
+            mlstm = model
+        dff = slstm_defs(cfg)["up"].shape[-1]
+        if on_model("act_ff") is not None and fits(("embed", "ff"),
+                                                   (d, dff), 1):
+            slstm_ff = model
     return MeshCtx(rules=rules, mesh=mesh, batch=b, rows=rows,
                    row_range=sh.row_range(b, mesh, rows),
                    grad=sh.partial_over(rows), kv=kv,
                    ff_dim=on_model("act_ff"), seq_dim=on_model("seq"),
-                   experts=experts, vocab=vocab, heads=heads)
+                   experts=experts, vocab=vocab, heads=heads, rnn=rnn,
+                   mlstm=mlstm, slstm_ff=slstm_ff)
 
 
 def _seq_of(n: int, mc: MeshCtx, mode: str) -> tuple[int, int] | None:

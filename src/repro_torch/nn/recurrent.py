@@ -114,30 +114,44 @@ def causal_conv1d(u, w, state=None):
     return y.to(u.dtype), ext[:, ext.shape[1] - (width - 1):, :]
 
 
-def rglru(u, p, h0=None):
+def rglru(u, p, h0=None, u_all=None, cols=None):
     """u: (B, S, dr) post-conv recurrence-branch input.  Returns (h,
-    h_last), h_last in float32."""
-    uf = u.float()
-    r = torch.sigmoid(uf @ p["w_a"].float())
-    i = torch.sigmoid(uf @ p["w_i"].float())
+    h_last), h_last in float32.  Where the model axis splits the channels,
+    ``u``, ``h0`` and ``p["lam"]`` are this rank's slice ``cols`` of them
+    and ``u_all`` (B, S, dr) is every channel's input: the gates' (dr, dr)
+    products take all of its channels and their columns ``cols``.  The
+    slice's own input is then read back from ``u_all``, after the gates,
+    so that its gradient sums in the order of one device's."""
+    gf = (u if u_all is None else u_all).float()
+    w_a, w_i = p["w_a"], p["w_i"]
+    if cols is not None:
+        w_a, w_i = w_a[:, cols], w_i[:, cols]
+    r = torch.sigmoid(gf @ w_a.float())
+    i = torch.sigmoid(gf @ w_i.float())
     log_a = -_RGLRU_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
+    uf = u.float() if u_all is None else u_all[..., cols].float()
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
                                    min=1e-12)) * (i * uf)
     h = linear_scan(a, gated, h0=None if h0 is None else h0.float())
     return h.to(u.dtype), h[:, -1, :]
 
 
-def rglru_block(p, x, cfg, cache=None):
+def rglru_block(p, x, cfg, cache=None, split=None):
     """Griffin recurrent block: gate branch * (conv -> RG-LRU) branch.
     cache: dict(h=(B, dr), conv=(B, W-1, dr)) or None (train).  Returns
-    (y, new_cache)."""
+    (y, new_cache).  ``split``, where the model axis splits the channels
+    (``p``'s channel leaves and ``cache`` hold this rank's slice): a
+    function of the slice's post-conv u giving (every channel's u, the
+    slice's columns) for :func:`rglru`; y is then the slice's part of the
+    output, which the caller sums over the axis."""
     gate = swish(x @ p["w_gate"])
     u = x @ p["w_x"]
     conv_state = cache["conv"] if cache is not None else None
     u, new_conv = causal_conv1d(u, p["conv_w"], conv_state)
     h0 = cache["h"] if cache is not None else None
-    h, h_last = rglru(u, p, h0=h0)
+    u_all, cols = (None, None) if split is None else split(u)
+    h, h_last = rglru(u, p, h0=h0, u_all=u_all, cols=cols)
     y = (h * gate) @ p["w_out"]
     return y, {"h": h_last.to(x.dtype), "conv": new_conv}
 
@@ -165,22 +179,21 @@ def mlstm_defs(cfg, prefix_shape=(), prefix_names=()) -> dict:
     }
 
 
-def _mlstm_chunk(q, k, v, i_gate, lf, state):
-    """One chunk, all heads.  q, k, v: (B, H, L, dk|dv); i_gate/lf: (B, H, L)
-    (input gate pre-activation, log-sigmoid forget).  state: (C, n, m) with
-    C (B, H, dk, dv), n (B, H, dk), m (B, H).  Returns (h, new_state)."""
-    L, dk = q.shape[-2:]
-    scale = 1.0 / math.sqrt(dk)
-    qf, kf, vf = q.float(), k.float(), v.float()
+def _chunk_whole(qf, kf, i_gate, lf, n_prev, m_prev, scale: float):
+    """The part of one chunk that holds no value dim, which every rank
+    computes alike where the model axis splits C's value dim: the decayed
+    scores s (B, H, L, L), the inter-chunk decay (B, H, L), the normaliser
+    max(|den|, exp(-m_t)) (B, H, L), the state update's weights w_tau
+    (B, H, L) and decay (B, H), and the new (n, m)."""
+    L = qf.shape[-2]
     b_cum = torch.cumsum(lf, dim=-1)                      # (B, H, L)
     # stabilizer: m_t = B_t + max(m_prev, max_{tau<=t}(i_tau - B_tau))
     a_run = torch.cummax(i_gate - b_cum, dim=-1).values
-    c_prev, n_prev, m_prev = state
     m_t = b_cum + torch.maximum(m_prev[..., None], a_run)
     # intra-chunk decay D[t, tau] = i_tau + B_t - B_tau - m_t (tau <= t)
     dmat = (i_gate[:, :, None, :] + b_cum[:, :, :, None]
             - b_cum[:, :, None, :] - m_t[..., None])
-    mask = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    mask = torch.ones((L, L), dtype=torch.bool, device=qf.device).tril()
     # exp after the mask (the reference takes it before): the same values,
     # but exp(dmat) above the diagonal overflows to inf in long chunks
     # (the decay grows with the distance), and the where's gradient there,
@@ -190,21 +203,37 @@ def _mlstm_chunk(q, k, v, i_gate, lf, state):
     s = torch.einsum("bhtd,bhsd->bhts", qf, kf) * scale * dexp
     del dexp
     inter_decay = torch.exp(b_cum + m_prev[..., None] - m_t)   # (B, H, L)
-    num = torch.einsum("bhts,bhsv->bhtv", s, vf) + \
-        inter_decay[..., None] * torch.einsum(
-            "bhtd,bhdv->bhtv", qf, c_prev) * scale
     den = s.sum(-1) + inter_decay * torch.einsum(
         "bhtd,bhd->bht", qf, n_prev) * scale
-    del s
-    h = num / torch.maximum(torch.abs(den), torch.exp(-m_t))[..., None]
+    norm = torch.maximum(torch.abs(den), torch.exp(-m_t))
     # state update to the end of the chunk
     m_new = m_t[..., -1]
     w_tau = torch.exp(i_gate + b_cum[..., -1:] - b_cum - m_new[..., None])
     decay = torch.exp(b_cum[..., -1] + m_prev - m_new)
-    c_new = decay[..., None, None] * c_prev + torch.einsum(
-        "bhsd,bhsv->bhdv", w_tau[..., None] * kf, vf)
     n_new = decay[..., None] * n_prev + torch.einsum("bhs,bhsd->bhd", w_tau,
                                                      kf)
+    return s, inter_decay, norm, w_tau, decay, (n_new, m_new)
+
+
+def _mlstm_chunk(q, k, v, i_gate, lf, state):
+    """One chunk, all heads.  q, k, v: (B, H, L, dk|dv); i_gate/lf: (B, H, L)
+    (input gate pre-activation, log-sigmoid forget).  state: (C, n, m) with
+    C (B, H, dk, dv), n (B, H, dk), m (B, H).  Returns (h, new_state).  v,
+    C and h may hold a slice of the value dim (a model-axis split): the
+    rest (:func:`_chunk_whole`) does not depend on it."""
+    dk = q.shape[-1]
+    scale = 1.0 / math.sqrt(dk)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    c_prev, n_prev, m_prev = state
+    s, inter_decay, norm, w_tau, decay, (n_new, m_new) = _chunk_whole(
+        qf, kf, i_gate, lf, n_prev, m_prev, scale)
+    num = torch.einsum("bhts,bhsv->bhtv", s, vf) + \
+        inter_decay[..., None] * torch.einsum(
+            "bhtd,bhdv->bhtv", qf, c_prev) * scale
+    del s
+    h = num / norm[..., None]
+    c_new = decay[..., None, None] * c_prev + torch.einsum(
+        "bhsd,bhsv->bhdv", w_tau[..., None] * kf, vf)
     return h, (c_new, n_new, m_new)
 
 
@@ -235,20 +264,31 @@ def mlstm_sequence(q, k, v, i_gate, lf, state=None, chunk: int = 256):
     return h.to(q.dtype), state
 
 
-def mlstm_step(q, k, v, i_gate, lf, state):
-    """Single decode step.  q, k, v: (B, H, dk|dv); gates (B, H)."""
-    c_prev, n_prev, m_prev = state
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    qf, kf = q.float(), k.float()
+def _step_whole(qf, kf, i_gate, lf, n_prev, m_prev, scale: float):
+    """The part of a decode step that holds no value dim (every rank's
+    alike under a split of it, as :func:`_chunk_whole`): the input and
+    forget weights (B, H), the normaliser (B, H) and the new (n, m)."""
     m_new = torch.maximum(lf + m_prev, i_gate)
     i_p = torch.exp(i_gate - m_new)
     f_p = torch.exp(lf + m_prev - m_new)
+    n_new = f_p[..., None] * n_prev + i_p[..., None] * kf
+    den = torch.einsum("bhd,bhd->bh", qf, n_new) * scale
+    norm = torch.maximum(torch.abs(den), torch.exp(-m_new))
+    return i_p, f_p, norm, (n_new, m_new)
+
+
+def mlstm_step(q, k, v, i_gate, lf, state):
+    """Single decode step.  q, k, v: (B, H, dk|dv); gates (B, H).  v, C
+    and h may hold a slice of the value dim, as in :func:`_mlstm_chunk`."""
+    c_prev, n_prev, m_prev = state
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf = q.float(), k.float()
+    i_p, f_p, norm, (n_new, m_new) = _step_whole(qf, kf, i_gate, lf, n_prev,
+                                                 m_prev, scale)
     c_new = f_p[..., None, None] * c_prev + i_p[..., None, None] * \
         torch.einsum("bhd,bhv->bhdv", kf, v.float())
-    n_new = f_p[..., None] * n_prev + i_p[..., None] * kf
     num = torch.einsum("bhd,bhdv->bhv", qf, c_new) * scale
-    den = torch.einsum("bhd,bhd->bh", qf, n_new) * scale
-    h = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
+    h = num / norm[..., None]
     return h.to(q.dtype), (c_new, n_new, m_new)
 
 

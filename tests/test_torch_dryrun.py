@@ -243,6 +243,45 @@ def _no_out_proj(out, wo):
             + wo.reshape(-1, wo.shape[-1]).sum(0).to(out.dtype)) * 0
 
 
+def _no_rglru(p, x, cfg, cache=None, split=None):
+    """The RG-LRU block with no matmul (its params still take a gradient,
+    its state stays as it was)."""
+    from repro_torch.nn.layers import leaves
+    new = {} if cache is None else {k: cache[k] for k in ("h", "conv")}
+    return x + 0 * sum(t.sum() for t in leaves(p)), new
+
+
+def _no_mlstm(cell, xn, ctx, cache):
+    """The mLSTM cell with no matmul (its params still take a gradient)."""
+    from repro_torch.nn.layers import leaves
+    return xn + 0 * sum(t.sum() for t in leaves(cell))
+
+
+def _no_gates(cell, xn, hh):
+    """The mLSTM's gate projection with no matmul."""
+    g = (xn.sum(-1, keepdim=True) + cell["w_if"].sum(0)
+         + cell["b_if"]).float()
+    return g[..., :hh], torch.nn.functional.logsigmoid(g[..., hh:])
+
+
+def _no_chunk_whole(qf, kf, i_gate, lf, n_prev, m_prev, scale):
+    """An mLSTM chunk's part without a value dim (``_chunk_whole``), its
+    shapes and its inputs' gradients, with no matmul."""
+    g = i_gate + lf
+    qs, ks = qf.sum(-1), kf.sum(-1)
+    s = qs[..., :, None] + ks[..., None, :] + g[..., None, :]
+    inter = g + qs + n_prev.sum(-1)[..., None] + m_prev[..., None]
+    return (s, inter, inter.exp(), g + ks, m_prev + g.sum(-1),
+            (n_prev + kf.sum(-2), m_prev + g[..., -1]))
+
+
+def _no_step_whole(qf, kf, i_gate, lf, n_prev, m_prev, scale):
+    """A decode step's part without a value dim (``_step_whole``) with no
+    matmul."""
+    g = i_gate + lf + qf.sum(-1) + n_prev.sum(-1)
+    return (g, g + m_prev, g.exp(), (n_prev + kf, m_prev + g))
+
+
 # the parts whose FLOPs the model axis splits: (module, name, stand-in)s
 SPLIT_PARTS = {
     "experts": [("repro_torch.nn.moe", "_expert_ffn", _no_expert_ffn)],
@@ -250,10 +289,25 @@ SPLIT_PARTS = {
     "head": [("repro_torch.models.lm", "_lm_head", _no_head)],
     "proj": [("repro_torch.models.lm", "_project", _no_project),
              ("repro_torch.models.lm", "_out_proj", _no_out_proj)],
+    "rglru": [("repro_torch.models.lm", "rglru_block", _no_rglru)],
+    "mlstm": [("repro_torch.models.lm", "_apply_mlstm", _no_mlstm)],
+    # the mLSTM's matmuls that every model rank computes alike: the gates,
+    # and the scores q k^T and the normaliser's q n of each chunk or step
+    "mlstm_whole": [("repro_torch.models.lm", "_mlstm_gates", _no_gates),
+                    ("repro_torch.nn.recurrent", "_chunk_whole",
+                     _no_chunk_whole),
+                    ("repro_torch.nn.recurrent", "_step_whole",
+                     _no_step_whole)],
 }
+# a part whose FLOPs the model axis splits but for a whole part, which
+# each model rank computes for its rows: (2,2,2) splits the whole part 4
+# ways (the rows) and the rest 8
+WHOLE_PARTS = {"mlstm": "mlstm_whole"}
 # (arch, mode, part): deepseek-moe-16b-smoke's routed experts' FFN and
 # qwen3-14b-smoke's attention sublayers in train and prefill, its LM head
-# in train, its decode q/k/v/o projections
+# in train, its decode q/k/v/o projections; recurrentgemma-9b-smoke's
+# RG-LRU block and xlstm-1.3b-smoke's mLSTM cell in train, prefill and
+# decode
 SPLIT_CASES = [
     pytest.param("deepseek-moe-16b", mode, "experts",
                  id=f"deepseek-moe-16b-{mode}") for mode in ("train",
@@ -264,6 +318,10 @@ SPLIT_CASES = [
 ] + [
     pytest.param("qwen3-14b", "train", "head", id="qwen3-14b-train-head"),
     pytest.param("qwen3-14b", "decode", "proj", id="qwen3-14b-decode-proj"),
+] + [
+    pytest.param(arch, c.mode, part, id=f"{arch}-{c.mode}-{part}")
+    for arch, part in (("recurrentgemma-9b", "rglru"),
+                       ("xlstm-1.3b", "mlstm")) for c in CELLS
 ]
 
 
@@ -271,32 +329,46 @@ SPLIT_CASES = [
 def test_model_axis_splits_sublayer_flops(arch, mode, part, monkeypatch):
     """The FLOPs of deepseek-moe-16b-smoke's routed experts' FFN, of
     qwen3-14b-smoke's attention sublayers (q/k/v/o and the scores) and LM
-    head, forward and backward, and of its decode projections (q/k/v/o):
-    per card of a fake (2,2,2) mesh, one device's (a (1,1,1) mesh) /
-    pod·data·model = 8, exactly, as the groups (64 tokens a rank in train,
-    32 in prefill, of 16 a group), the experts (8 over a model axis of 2),
-    the positions (32), the vocabulary (256) and the kv heads (2) divide
-    evenly.  A part's FLOPs: the step's less the step's with the part's
-    matmuls taken out."""
+    head, forward and backward, of its decode projections (q/k/v/o), and
+    of recurrentgemma-9b-smoke's RG-LRU block: per card of a fake (2,2,2)
+    mesh, one device's (a (1,1,1) mesh) / pod·data·model = 8, exactly, as
+    the groups (64 tokens a rank in train, 32 in prefill, of 16 a group),
+    the experts (8 over a model axis of 2), the positions (32), the
+    vocabulary (256), the kv heads (2) and the RG-LRU's channels (64)
+    divide evenly.  xlstm-1.3b-smoke's mLSTM cell: its whole part W (the
+    gates, q k^T, q n) / 4 (pod·data: each model rank computes it for its
+    rows) plus the rest / 8 (di 128, dv 32).  A part's FLOPs: the step's
+    less the step's with the part's matmuls taken out."""
     import importlib
     from repro_torch.launch.dryrun import lower_cell
     from repro_torch.launch.mesh import make_mesh
     cfg = get_config(arch + "-smoke")
     shape = next(c for c in CELLS if c.mode == mode)
+    parts = [part, WHOLE_PARTS[part]] if part in WHOLE_PARTS else [part]
     flops = {}
     for world, mesh_shape in ((1, (1, 1, 1)), (8, (2, 2, 2))):
         with fake_world(world):
             mesh = make_mesh(mesh_shape, ("pod", "data", "model"),
                              device="cpu")
             step = lower_cell(cfg, shape, mesh)[0].flops
-            with monkeypatch.context() as mp:
-                for module, name, stub in SPLIT_PARTS[part]:
-                    mp.setattr(importlib.import_module(module), name, stub)
-                rest = lower_cell(cfg, shape, mesh)[0].flops
-        flops[world] = step - rest
-    print(f"{arch} {mode} {part}: one device {flops[1]:.6e}, a card of "
-          f"(2,2,2) {flops[8]:.6e}")
-    assert flops[8] > 0 and flops[8] * 8 == flops[1]
+            for name_ in parts:
+                with monkeypatch.context() as mp:
+                    for module, name, stub in SPLIT_PARTS[name_]:
+                        mp.setattr(importlib.import_module(module), name,
+                                   stub)
+                    rest = lower_cell(cfg, shape, mesh)[0].flops
+                flops[name_, world] = step - rest
+    one, card = flops[part, 1], flops[part, 8]
+    print(f"{arch} {mode} {part}: one device {one:.6e}, a card of (2,2,2) "
+          f"{card:.6e}")
+    assert card > 0
+    if part not in WHOLE_PARTS:
+        assert card * 8 == one
+        return
+    w1, w8 = flops[WHOLE_PARTS[part], 1], flops[WHOLE_PARTS[part], 8]
+    print(f"  whole part: one device {w1:.6e}, a card {w8:.6e}")
+    assert 0 < w1 < one and w8 * 4 == w1
+    assert card == w1 / 4 + (one - w1) / 8
 
 
 def _reference_step_flops(mode: str) -> float:

@@ -13,7 +13,8 @@ too; the batches, prompts and frontend stubs (``frames``, ``patches``) are
 numpy arrays from seeds, handed to both.  The port runs in gloo ranks on
 the CPU (``tests/torch_mesh_ranks.py``): one group of 8 for the train
 step, the checkpoints and the (2, 2, 2) serves, one of 2 for the (1, 2)
-serves.
+serves (with each rank's final recurrent states) and one (1, 2) train step
+of the recurrent families.
 
 Tolerances are ``tests/test_torch_mesh.py``'s: losses rtol 1e-5, logits
 atol 1e-5; params after 3 steps, where the gradient stayed above 1e-4,
@@ -313,6 +314,58 @@ def test_model_axis_splits_vocab_and_heads(suite, serve12, arch):
             r["proj"]
     assert sorted(set(serve12[(arch, "12")]["probe"]["vocab"])) == \
         ranks.vocab_calls(cfg, 2, False)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_axis_splits_recurrences(suite, serve12, arch):
+    """What each rank of (2,2,2), and rank 0 of (1,2), read of the
+    recurrent blocks in train and serve (``ranks.recurrent_want``): the
+    RG-LRU's w_x, w_gate and w_out at d_rnn / model, the mLSTM's w_up at
+    di / model and its v at dv / model, the sLSTM's up and down at dff /
+    model; in serve each state leaf as its local shard, its batch rows and
+    its channels / model (the mLSTM's C at dv / model), so that no state
+    is gathered; nothing for the other families."""
+    cfg = get_config(arch)
+    rec = suite["splits"][arch]
+    for mode, rows in (("train", None), ("serve", ranks.SERVE_B // 4)):
+        for r in rec[mode]:
+            assert r["recurrent"] == ranks.recurrent_want(cfg, 2, rows), \
+                r["recurrent"]
+    got = sorted(set(serve12[(arch, "12")]["probe"]["recurrent"]))
+    assert got == ranks.recurrent_want(cfg, 2, ranks.SERVE_B), got
+    if arch in ranks.RECURRENT_ARCHS:
+        r = serve12[(arch, "12_train")]
+        np.testing.assert_allclose(r["mesh"], r["single"], rtol=RTOL)
+        got = sorted(set(r["probe"]["recurrent"]))
+        assert got == ranks.recurrent_want(cfg, 2, None), got
+
+
+# the recurrent state leaves that the model axis splits along their last
+# dim: the RG-LRU's channels, the mLSTM's value dim (C) and di (conv)
+SPLIT_STATE = {"rec": ("h", "conv"), "mlstm": ("C", "conv")}
+
+
+@pytest.mark.parametrize("arch", ranks.RECURRENT_ARCHS)
+def test_mesh_recurrent_states_are_slices(serve12, arch):
+    """After the (1,2) prefill and decode steps, each rank's local shard
+    of every recurrent state equals its slice of one device's final state
+    (SPLIT_STATE's leaves: slice r of 2 along the last dim; the mLSTM's n
+    and m and the sLSTM's state whole), within the file's RTOL and ATOL:
+    past the first layer each layer's input holds sums over the model axis
+    in another order (on seed-0 params the sLSTM's n moved by 9.8e-6)."""
+    st = serve12[(arch, "12")]["states"]
+    assert len(st["mesh"]) == 2 and st["single"]
+    for r, mine in enumerate(st["mesh"]):
+        assert mine.keys() == st["single"].keys()
+        for key, t in mine.items():
+            whole = st["single"][key].numpy()
+            if key[2] in SPLIT_STATE.get(key[1].split("_", 1)[1], ()):
+                n = whole.shape[-1] // 2
+                whole = whole[..., r * n:(r + 1) * n]
+            assert t.shape == whole.shape, (key, t.shape, whole.shape)
+            np.testing.assert_allclose(t.numpy(), whole, rtol=RTOL,
+                                       atol=ATOL,
+                                       err_msg=f"rank {r} {key}")
 
 
 @pytest.mark.parametrize("mesh", ["222", "12"])

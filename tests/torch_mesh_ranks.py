@@ -185,10 +185,13 @@ def _train(cfg, params, steps, *, mesh=None, start=0, state=None,
     return losses, p, o
 
 
-def _serve(cfg, params, prompt, dec, *, mesh=None, device="cpu"):
+def _serve(cfg, params, prompt, dec, *, mesh=None, device="cpu",
+           states=None):
     """Prefill of ``prompt`` (a dict of host arrays) + len(dec) decode
     steps; the logits of each, and the local slot count of the first
-    self-attention cache (None where the model has none)."""
+    self-attention cache (None where the model has none).  A dict
+    ``states`` receives the final recurrent states' local shards
+    (``recurrent_states``)."""
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import local, shard_tree
     from repro_torch.train import serve
@@ -212,8 +215,21 @@ def _serve(cfg, params, prompt, dec, *, mesh=None, device="cpu"):
         out.append(full(lg).cpu())
     attn = [c for stack in cache["stacks"] for blk in stack.values()
             if (c := lm._self_cache(blk)) is not None]
+    if states is not None:
+        states.update(recurrent_states(cache))
     return torch.stack(out), (int(local(attn[0]["k"]).shape[2]) if attn
                               else None)
+
+
+def recurrent_states(cache) -> dict:
+    """{(stack, block key, leaf): this rank's local shard} of every
+    recurrent block's state in ``cache``, copied."""
+    from repro_torch.parallel.sharding import local
+    return {(si, key, leaf): local(t).detach().clone()
+            for si, stack in enumerate(cache["stacks"])
+            for key, blk in stack.items()
+            if key.split("_", 1)[1] in ("rec", "mlstm", "slstm")
+            for leaf, t in blk.items()}
 
 
 def leaves_of(tree):
@@ -240,13 +256,52 @@ def probe():
     shape (d, *heads)) under ``"proj"``; the mesh's embedding lookup, LM
     head and loss log-sum-exp as ("embed", its table's shape), ("head",
     the head's shape (d, V)) and ("loss", (its logit columns,)) under
-    ``"vocab"``."""
+    ``"vocab"``; under ``"recurrent"`` each recurrent block's kept weights'
+    shapes and the shapes of the state leaves it read (() in train):
+    ("rec", w_x, w_gate, w_out, (h, conv)), ("mlstm", w_up, its v's
+    last dim, (C, n, m, conv)), ("slstm", up, down).  Its lists hold
+    tuples of ints and tuples only, so that a set of them sorts."""
     from repro_torch.models import lm
     from repro_torch.nn import moe
-    rec: dict = {"experts": [], "attn": [], "proj": [], "vocab": []}
+    rec: dict = {"experts": [], "attn": [], "proj": [], "vocab": [],
+                 "recurrent": []}
     saved = (moe._expert_ffn, lm.gqa_attention, lm._project,
-             lm._vocab_embed, lm._lm_head, lm._split_logz)
-    ffn, attn, project, embed, head, logz = saved
+             lm._vocab_embed, lm._lm_head, lm._split_logz, lm.rglru_block,
+             lm._apply_mlstm, lm.mlstm_sequence, lm.mlstm_step,
+             lm._apply_slstm)
+    (ffn, attn, project, embed, head, logz, rglru, mlstm, mlstm_seq,
+     mlstm_step, slstm) = saved
+
+    def shapes(tree, names):
+        return tuple(tuple(tree[k].shape) for k in names) \
+            if tree is not None else ()
+
+    def rglru_probe(p, x, cfg, cache=None, split=None):
+        rec["recurrent"].append(("rec", *shapes(p, ("w_x", "w_gate",
+                                                     "w_out")),
+                                 shapes(cache, ("h", "conv"))))
+        return rglru(p, x, cfg, cache=cache, split=split)
+
+    v_dim: list = []
+
+    def seq_probe(q, k, v, *a, **kw):
+        v_dim.append(v.shape[-1])
+        return mlstm_seq(q, k, v, *a, **kw)
+
+    def step_probe(q, k, v, *a, **kw):
+        v_dim.append(v.shape[-1])
+        return mlstm_step(q, k, v, *a, **kw)
+
+    def mlstm_probe(cell, xn, ctx, cache):
+        out = mlstm(cell, xn, ctx, cache)
+        rec["recurrent"].append(("mlstm", tuple(cell["w_up"].shape),
+                                 v_dim.pop(),
+                                 shapes(cache, ("C", "n", "m", "conv"))))
+        return out
+
+    def slstm_probe(cell, xn, ctx, cache):
+        rec["recurrent"].append(("slstm", *shapes(cell, ("up", "down"))))
+        return slstm(cell, xn, ctx, cache)
 
     def ffn_probe(p, x):
         rec["experts"].append((tuple(x.shape), tuple(p["wi"].shape)))
@@ -273,13 +328,42 @@ def probe():
         return logz(lg, group)
 
     (moe._expert_ffn, lm.gqa_attention, lm._project, lm._vocab_embed,
-     lm._lm_head, lm._split_logz) = (ffn_probe, attn_probe, project_probe,
-                                     embed_probe, head_probe, logz_probe)
+     lm._lm_head, lm._split_logz, lm.rglru_block, lm._apply_mlstm,
+     lm.mlstm_sequence, lm.mlstm_step, lm._apply_slstm) = (
+        ffn_probe, attn_probe, project_probe, embed_probe, head_probe,
+        logz_probe, rglru_probe, mlstm_probe, seq_probe, step_probe,
+        slstm_probe)
     try:
         yield rec
     finally:
         (moe._expert_ffn, lm.gqa_attention, lm._project, lm._vocab_embed,
-         lm._lm_head, lm._split_logz) = saved
+         lm._lm_head, lm._split_logz, lm.rglru_block, lm._apply_mlstm,
+         lm.mlstm_sequence, lm.mlstm_step, lm._apply_slstm) = saved
+
+
+def recurrent_want(cfg, m: int, rows: int | None) -> list:
+    """The ``probe`` "recurrent" records of a rank on a model axis of ``m``
+    (each once): the RG-LRU's w_x, w_gate and w_out at d_rnn / m, the
+    mLSTM's w_up at di / m and its v at dv / m, the sLSTM's up and down at
+    dff / m; with ``rows`` (serve: the rank's batch rows) the state leaves
+    read, each its local shard (channels / m, n and m and the sLSTM's
+    whole); none for the other families."""
+    from repro_torch.nn.recurrent import slstm_defs
+    d = cfg.d_model
+    if cfg.family == "hybrid":
+        dr = (cfg.d_rnn or d) // m
+        state = ((rows, dr), (rows, cfg.conv_width - 1, dr)) if rows else ()
+        return [("rec", (d, dr), (d, dr), (dr, d), state)]
+    if cfg.family != "ssm":
+        return []
+    di = int(cfg.proj_factor * d)
+    hh = cfg.n_heads
+    dk = di // hh
+    state = ((rows, hh, dk, dk // m), (rows, hh, dk), (rows, hh),
+             (rows, 3, di // m)) if rows else ()
+    dff = slstm_defs(cfg)["up"].shape[-1] // m
+    return sorted([("mlstm", (d, di // m), dk // m, state),
+                   ("slstm", (d, dff), (dff, d))])
 
 
 def decode_proj(rec) -> list:
@@ -565,11 +649,18 @@ def _family_serves(cfg, arch, init, mesh, name, rank) -> dict:
         cases.append(("_ring", RING_PROMPT, RING_STEPS))
     for tag, s, n in cases:
         prompt, dec = serve_inputs(cfg, s, n)
-        single = _serve(cfg, init, prompt, dec)[0] if rank == 0 else None
+        states = {"single": {}, "mesh": {}}
+        single = _serve(cfg, init, prompt, dec, states=states["single"])[0] \
+            if rank == 0 else None
         with probe() as rec:
-            got, slots = _serve(cfg, init, prompt, dec, mesh=mesh)
+            got, slots = _serve(cfg, init, prompt, dec, mesh=mesh,
+                                states=states["mesh"])
         out[(arch, name + tag)] = dict(mesh=got, single=single,
                                        local_slots=slots, probe=rec)
+        if not tag:
+            # every rank's final recurrent states, beside one device's
+            out[(arch, name)]["states"] = dict(
+                single=states["single"], mesh=every_rank(states["mesh"]))
     out[(arch, name)]["local_state"] = _local_state_shapes(cfg, mesh)
     return out
 
@@ -610,9 +701,16 @@ def family_suite(rank, world, workdir, ref_path):
     return out
 
 
+# the recurrent families, whose (1,2) serves record their final states
+# and which take one train step on (1,2) too
+RECURRENT_ARCHS = FAMILY_ARCHS[:2]
+
+
 def family_serve_12(rank, world, workdir, ref_path):
     """World 2: the serve steps of FAMILY_ARCHS on (1,2) ("data",
-    "model"), and the hybrid's ring past its wrap."""
+    "model"), and the hybrid's ring past its wrap; one train step of
+    RECURRENT_ARCHS on (1,2) (``"12_train"``: its losses, one device's,
+    rank 0's ``probe`` records)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     ref = dict(np.load(ref_path))
@@ -620,8 +718,14 @@ def family_serve_12(rank, world, workdir, ref_path):
     out = {}
     for arch in FAMILY_ARCHS:
         cfg = get_config(arch)
-        out.update(_family_serves(cfg, arch, ref_params(ref, arch, cfg), m12,
-                                  "12", rank))
+        init = ref_params(ref, arch, cfg)
+        out.update(_family_serves(cfg, arch, init, m12, "12", rank))
+        if arch in RECURRENT_ARCHS:
+            single = _train(cfg, init, 1)[0] if rank == 0 else None
+            with probe() as rec:
+                losses = _train(cfg, init, 1, mesh=m12)[0]
+            out[(arch, "12_train")] = dict(mesh=losses, single=single,
+                                           probe=rec)
     return out
 
 
