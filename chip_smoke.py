@@ -623,7 +623,7 @@ def serve_path(mode, model, qmodel, xs, dev, expect):
     """Drive one int8 plan on the card; hold it against the port on the CPU.
     ``expect`` is the launches per kernel that ``path_launches`` counted for
     one forward of this plan: the run must make exactly those.  Returns the
-    launches of this run and the per-request ms."""
+    launches of this run and the ms of a request served alone."""
     from repro_torch.api import Session
     from repro_torch.core import split_model
     plan = split_model(model, RATINGS, mode=mode)
@@ -656,11 +656,6 @@ def serve_path(mode, model, qmodel, xs, dev, expect):
                              f"{int((ys != ys_cpu).sum())} places")
     if not ys.any():
         raise AssertionError(f"{mode}: output is all zeros")
-    batch_ms = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        sess.submit_many(xs)
-        batch_ms.append((time.perf_counter() - t0) * 1e3 / len(xs))
     one_ms = []
     for x in xs:
         t0 = time.perf_counter()
@@ -671,27 +666,9 @@ def serve_path(mode, model, qmodel, xs, dev, expect):
                              f"{wrappers['qgemm'].weight_copies} weights")
     rec = dict(mode=mode, launches=launches, bit_exact_vs_cpu=True,
                weight_copies=0,
-               ms_per_request_batch8=statistics.median(batch_ms),
-               ms_request_batch1=statistics.median(one_ms),
-               batch8_profile=profile_batch(sess, xs))
+               ms_request_batch1=statistics.median(one_ms))
     print(f"path {json.dumps(rec)}")
     return rec
-
-
-def profile_batch(sess, xs) -> dict:
-    """Where one batch's device time goes: device time per kernel name
-    (top ten), the batch's host wall time, and the share of that wall time
-    the card sat idle."""
-    sess.submit_many(xs)
-    events, wall_us, _ = trace_calls(lambda: sess.submit_many(xs), 1)
-    by_name: dict[str, float] = {}
-    for name, us in events:
-        by_name[name] = by_name.get(name, 0.0) + us
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return dict(device_us=busy, launches=len(events), wall_us=wall_us,
-                idle_share=(1 - busy / wall_us) if events else None,
-                top=[dict(name=n[:80], us=us) for n, us in top])
 
 
 def float_path(model, xs, dev):

@@ -23,12 +23,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import threading
 import time
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.executor import (CompiledSplitExecutor, reference_forward,
                              resolve_device)
 from ..core.quantize import QuantizedModel, calibrate_scales, quantize_model
@@ -102,14 +104,24 @@ class RollingLatency:
 
 @dataclasses.dataclass(frozen=True)
 class SessionStats:
-    """Rolling serving statistics (engine dispatch time only)."""
+    """Rolling serving statistics (engine dispatch time only).
+
+    A dispatch's time is what :meth:`InflightDispatch.wait` records: on
+    CUDA the device time between the dispatch's two events, from when the
+    stream reaches the batch to when its output is on the host, and not
+    the host's wall time (the wait for earlier batches and for the caller's
+    ``wait()`` is left out; where the stream waits for the host's
+    launches, that wait is in); on the CPU the wall time from the
+    dispatch's start to its ``wait``.  ``wall_s`` keeps its name for the
+    callers that read it.
+    """
 
     requests: int                   # real requests served
     batches: int                    # engine dispatches issued
     padded: int                     # zero-padded slots executed
-    wall_s: float                   # total dispatch wall time
+    wall_s: float                   # sum of the dispatches' times (above)
     throughput_rps: float           # requests / wall_s
-    mean_latency_s: float           # wall_s / batches (per-dispatch latency)
+    mean_latency_s: float           # wall_s / batches (per-dispatch time)
     per_bucket: dict[int, int]      # bucket size -> dispatch count
     # deployment context from the plan (defaults when serving a bare
     # core SplitPlan): the transport policy the plan was costed under and
@@ -205,20 +217,27 @@ class InflightDispatch:
     caller gets round to ``wait()``.  On the CPU the forward ran inside
     :meth:`Session.dispatch_async`; ``wait()`` records the wall time since
     the dispatch began.  Either way it returns the unpadded outputs.
+    ``dispatch_id`` is the key of the dispatch's spans
+    (:mod:`repro_torch.trace`).
     """
 
     __slots__ = ("_session", "_n", "_bucket", "_out", "_t0", "_events",
-                 "_result")
+                 "_result", "_id")
 
     def __init__(self, session: "Session", n: int, bucket: int, out, t0: float,
-                 events=None):
+                 events, dispatch_id: int):
         self._session = session
         self._n = n
         self._bucket = bucket
         self._out = out
         self._t0 = t0
         self._events = events
+        self._id = dispatch_id
         self._result: np.ndarray | None = None
+
+    @property
+    def dispatch_id(self) -> int:
+        return self._id
 
     @property
     def n_requests(self) -> int:
@@ -230,6 +249,7 @@ class InflightDispatch:
 
     def wait(self) -> np.ndarray:
         if self._result is None:
+            t0_ns = trace.clock()
             if self._events is None:
                 out = self._out.cpu().numpy()
                 dt = time.perf_counter() - self._t0
@@ -241,6 +261,9 @@ class InflightDispatch:
             self._out = None
             self._session._record_dispatch(self._n, self._bucket, dt)
             self._result = out[:self._n]
+            if t0_ns is not None:
+                trace.record("session.wait", self._id, t0_ns,
+                             time.perf_counter_ns(), {"device_s": dt})
         return self._result
 
 
@@ -293,6 +316,7 @@ class Session:
         self._wall_s = 0.0
         self._per_bucket: dict[int, int] = {}
         self._rolling = RollingLatency()
+        self._dispatch_ids = itertools.count()
 
     # -- calibration ---------------------------------------------------------
     def _calibrate(self, calibration, n_samples: int, seed: int) -> QuantizedModel:
@@ -351,11 +375,18 @@ class Session:
         copy to a freshly pinned host tensor is enqueued on the same stream
         right after the forward (the kernels' split-K counters rely on one
         ordered stream), between two timing events.  Stats are recorded
-        when the returned handle's ``wait()`` reads the result.
+        when the returned handle's ``wait()`` reads the result.  Each
+        dispatch takes the next id of this session (the handle's
+        ``dispatch_id``), the key of its spans while a profiler records
+        them (:mod:`repro_torch.trace`).
         """
+        t_ns = trace.clock()
         n = len(xs)
         if not 1 <= n <= self.max_batch:
             raise ValueError(f"dispatch of {n} requests (want 1..{self.max_batch})")
+        did = next(self._dispatch_ids)
+        # the engine's spans carry the id; an untraced call passes none
+        traced = {} if t_ns is None else {"dispatch": did}
         b = self.bucket_for(n)
         if b > n:
             pad = np.zeros((b - n, *xs.shape[1:]), np.float32)
@@ -364,17 +395,26 @@ class Session:
             batch = xs
         t0 = time.perf_counter()
         if self.device.type != "cuda":
-            out = self.engine.run_batch_async(batch, mode=self._mode)
-            return InflightDispatch(self, n, b, out, t0)
-        stream = torch.cuda.current_stream(self.device)
-        start = torch.cuda.Event(enable_timing=True)
-        done = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        out = self.engine.run_batch_async(batch, mode=self._mode)
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done.record(stream)
-        return InflightDispatch(self, n, b, host, t0, (start, done))
+            out = self.engine.run_batch_async(batch, mode=self._mode, **traced)
+            disp = InflightDispatch(self, n, b, out, t0, None, did)
+        else:
+            stream = torch.cuda.current_stream(self.device)
+            start = torch.cuda.Event(enable_timing=True)
+            done = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            out = self.engine.run_batch_async(batch, mode=self._mode, **traced)
+            t_out = None if t_ns is None else time.perf_counter_ns()
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            done.record(stream)
+            if t_out is not None:
+                trace.record("session.output", did, t_out,
+                             time.perf_counter_ns())
+            disp = InflightDispatch(self, n, b, host, t0, (start, done), did)
+        if t_ns is not None:
+            trace.record("session.dispatch", did, t_ns, time.perf_counter_ns(),
+                         {"n": n, "bucket": b})
+        return disp
 
     def _dispatch(self, xs: np.ndarray) -> np.ndarray:
         """One padded engine dispatch for n <= max bucket requests."""

@@ -47,11 +47,13 @@ import contextlib
 import dataclasses
 import hashlib
 import threading
+import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..kernels.dwconv.ops import (ShardTable, dwconv_bands_unpadded,
                                    dwconv_shards, shard_table)
 from ..kernels.dwconv.ref import dwconv_acc_int32 as _dwconv_bands_int32
@@ -614,6 +616,14 @@ class CompiledSplitExecutor:
                 if layer.save_as is not None:
                     self._save_scale[layer.save_as] = float(
                         qmodel.layers[i].out_scale)
+        layers = plan.model.layers
+        # attrs of each block group's ``executor.block`` span
+        self._block_attrs = tuple(
+            {"first": layers[g[0]].name, "last": layers[g[-1]].name,
+             "mode": ("spatial" if plan.splits[g[0]].mode == "spatial"
+                      else "flat"),
+             "kind": "+".join(layers[i].kind for i in g)}
+            for g in plan.block_groups)
 
     # -- device constants ----------------------------------------------------
     # Shared ACROSS executor instances keyed on (plan fingerprint, device):
@@ -872,7 +882,9 @@ class CompiledSplitExecutor:
         return y.index_select(2, out_flat)
 
     # -- plan execution -------------------------------------------------------
-    def _forward(self, x, mode: str):
+    def _forward(self, x, mode: str, dispatch: int | None = None):
+        """The plan over the batch ``x``, enqueued; with a ``dispatch`` id,
+        one ``executor.block`` span a block group."""
         if mode not in ("float", "int8"):
             raise ValueError(f"unknown mode {mode!r} (want 'float' or 'int8')")
         if mode == "int8" and self.qmodel is None:
@@ -885,7 +897,10 @@ class CompiledSplitExecutor:
         else:
             cur = x
         stash: dict[str, torch.Tensor] = {}
-        for idxs in self.plan.block_groups:
+        # one clock read a block: each block's span starts where the one
+        # before it ends
+        t_ns = None if dispatch is None else time.perf_counter_ns()
+        for g, idxs in enumerate(self.plan.block_groups):
             i = idxs[-1]
             layer = model.layers[i]
             cur = cur.reshape(bsz, *model.layers[idxs[0]].in_shape)
@@ -907,6 +922,11 @@ class CompiledSplitExecutor:
                     cur = cur + stash[layer.residual_from]
             if layer.save_as is not None:
                 stash[layer.save_as] = cur
+            if t_ns is not None:
+                t1_ns = time.perf_counter_ns()
+                trace.record("executor.block", dispatch, t_ns, t1_ns,
+                             self._block_attrs[g])
+                t_ns = t1_ns
         return cur
 
     def _input(self, xs):
@@ -926,16 +946,31 @@ class CompiledSplitExecutor:
         """xs: (B, C, H, W) float batch; returns (B, *out_shape)."""
         return self.run_batch_async(xs, mode).cpu().numpy()
 
-    def run_batch_async(self, xs: np.ndarray, mode: str = "float"):
+    def run_batch_async(self, xs: np.ndarray, mode: str = "float",
+                        dispatch: int | None = None):
         """Like :meth:`run_batch` but returns the output tensor on the
         device without waiting for it: the work is enqueued on the current
         stream, so the caller can overlap host work (forming the next
-        micro-batch) with this batch's compute and read it later."""
+        micro-batch) with this batch's compute and read it later.
+
+        ``dispatch``: the caller's dispatch id, given while spans are
+        recorded (:mod:`repro_torch.trace`): ``executor.input``,
+        ``executor.forward`` and the blocks' spans carry it.  None records
+        nothing."""
+        t0_ns = None if dispatch is None else time.perf_counter_ns()
         x = self._input(xs)
+        if t0_ns is not None:
+            t1_ns = time.perf_counter_ns()
+            trace.record("executor.input", dispatch, t0_ns, t1_ns)
         if mode == "float":
             with _full_fp32():
-                return self._forward(x, mode)
-        return self._forward(x, mode)
+                y = self._forward(x, mode, dispatch)
+        else:
+            y = self._forward(x, mode, dispatch)
+        if t0_ns is not None:
+            trace.record("executor.forward", dispatch, t1_ns,
+                         time.perf_counter_ns())
+        return y
 
     def warmup(self, input_shape=None, batch: int | None = None,
                mode: str = "float") -> None:

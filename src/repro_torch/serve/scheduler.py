@@ -1,6 +1,7 @@
 """Continuous-batching scheduler policy: which tenant dispatches next, and
 with how many requests — port of ``repro/serve/scheduler.py`` (pure
-policy; a copy but for this docstring).
+policy; a copy but for this docstring and the request's id and stamp,
+which the port's spans read).
 
 Tenants host *different compiled plans* (or the same model at different
 resolutions), so requests from two tenants can never ride the same engine
@@ -24,21 +25,33 @@ from .admission import SLO
 
 
 class QueuedRequest:
-    """One admitted request waiting for (or riding) a dispatch."""
+    """One admitted request waiting for (or riding) a dispatch.
 
-    __slots__ = ("x", "ticket", "tenant", "t_arrival", "deadline")
+    ``rid`` is the server's id of the request and ``t_submit_ns`` the
+    ``time.perf_counter_ns()`` of its ``submit``: the key and the start of
+    its ``serve.queue`` span (:mod:`repro_torch.trace`).  ``t_arrival`` is
+    on the server's admission clock.
+    """
 
-    def __init__(self, x, tenant: str, t_arrival: float, deadline: float):
+    __slots__ = ("x", "ticket", "tenant", "t_arrival", "deadline", "rid",
+                 "t_submit_ns")
+
+    def __init__(self, x, tenant: str, t_arrival: float, deadline: float,
+                 rid: int = -1, t_submit_ns: int = 0):
         self.x = x                  # validated (C, H, W) float32 sample
         self.ticket = Ticket()      # detached: fulfilled by the scheduler
         self.tenant = tenant
         self.t_arrival = t_arrival
         self.deadline = deadline
+        self.rid = rid
+        self.t_submit_ns = t_submit_ns
 
 
-def make_request(x, tenant: str, t_arrival: float, slo: SLO) -> QueuedRequest:
+def make_request(x, tenant: str, t_arrival: float, slo: SLO, *,
+                 rid: int = -1, t_submit_ns: int = 0) -> QueuedRequest:
     target = slo.p99_target_s if slo.p99_target_s is not None else float("inf")
-    return QueuedRequest(x, tenant, t_arrival, t_arrival + target)
+    return QueuedRequest(x, tenant, t_arrival, t_arrival + target, rid,
+                         t_submit_ns)
 
 
 class EdfBatcher:

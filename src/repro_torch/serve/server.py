@@ -65,11 +65,13 @@ blocking on tickets.  The asyncio distributed runtime
 from __future__ import annotations
 
 import collections
+import itertools
 import threading
 import time
 
 import numpy as np
 
+from .. import trace
 from ..api.plan import Plan
 from ..api.session import Session, Ticket
 from ..core.executor import CompiledSplitExecutor
@@ -121,6 +123,7 @@ class Server:
         self._running = False
         self._draining = False
         self._inflight_batches = 0
+        self._request_ids = itertools.count()
         self._thread: threading.Thread | None = None
 
     # -- tenancy -------------------------------------------------------------
@@ -220,7 +223,11 @@ class Server:
         """Admit one request for ``tenant``; returns a detached
         :class:`Ticket` (``result(timeout=...)``).  Raises
         :class:`Overloaded` when admission control sheds the request and
-        ``ValueError`` on a malformed input (checked before admission)."""
+        ``ValueError`` on a malformed input (checked before admission).
+        The request takes the server's next id and a
+        ``time.perf_counter_ns()`` stamp, the key and start of its
+        ``serve.queue`` span (:mod:`repro_torch.trace`)."""
+        t_ns = time.perf_counter_ns()
         t = self._tenant(tenant)
         x = t.session.check_input(x)
         with self._lock:
@@ -230,7 +237,8 @@ class Server:
                 tenant, t.slo, queue_depth=len(t.queue),
                 inflight_batches=self._inflight_batches,
                 max_batch=t.session.max_batch)
-            req = make_request(x, tenant, self._clock(), t.slo)
+            req = make_request(x, tenant, self._clock(), t.slo,
+                               rid=next(self._request_ids), t_submit_ns=t_ns)
             t.queue.append(req)
             self._work.notify()
         return req.ticket
@@ -303,6 +311,7 @@ class Server:
                     batch = None
                 elif len(inflight) < self.max_inflight:
                     batch = self._form_batch(full_only=bool(inflight))
+                    t_taken_ns = trace.clock()
             if batch is not None:
                 tenant, reqs = batch
                 try:
@@ -311,6 +320,12 @@ class Server:
                 except Exception as e:  # noqa: BLE001 — isolate the batch
                     self._fail_batch(tenant, reqs, e)
                     continue
+                if t_taken_ns is not None:
+                    attrs = {"dispatch": disp.dispatch_id,
+                             "tenant": tenant.name}
+                    for r in reqs:
+                        trace.record("serve.queue", r.rid, r.t_submit_ns,
+                                     t_taken_ns, attrs)
                 inflight.append((disp, reqs, tenant))
                 if len(inflight) < self.max_inflight:
                     continue    # keep the device pipe full before blocking
@@ -335,11 +350,15 @@ class Server:
         except Exception as e:  # noqa: BLE001 — isolate the batch
             self._fail_batch(tenant, reqs, e)
             return
+        t0_ns = trace.clock()
         now = self._clock()
         for r, y in zip(reqs, outs):
             r.ticket._fulfill(np.asarray(y))
         self.monitor.on_complete_batch(
             tenant.name, [now - r.t_arrival for r in reqs])
+        if t0_ns is not None:
+            trace.record("serve.fulfill", disp.dispatch_id, t0_ns,
+                         time.perf_counter_ns(), {"tenant": tenant.name})
         with self._lock:
             self._inflight_batches -= 1
             self._work.notify()
