@@ -22,9 +22,13 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
 3. serves int8 MobileNetV2 at the paper's full width (112x112x3, 1000
    classes, 54 layers) split spatially across 8 workers of unequal ratings
    through ``Session.submit_many`` on the card, and requires the output to
-   equal a CPU session of the port bit for bit, the wrappers' launch
-   counters to equal the launches listed for the plan, and no weight to be
-   copied into the kernel's layout (``qgemm.weight_copies`` 0);
+   equal a CPU session of the port bit for bit, the ``qgemm`` and
+   ``dwconv3x3`` kernels of a profiler trace of that run to number the
+   launches listed for the plan (the forward is a CUDA graph captured in
+   the warm-up and replayed, and a replay calls no wrapper: the wrappers'
+   launch counters must stay at 0), every dispatch after the warm-up to
+   replay (``graphs``: ``graph_stats()``), and no weight to be copied into
+   the kernel's layout (``qgemm.weight_copies`` 0);
 4. does the same with a kernel-mode and a neuron-mode plan (the flat
    depthwise and im2col paths);
 5. serves the float model on the card, allclose to the CPU;
@@ -55,23 +59,28 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
    with the engine's shapes in step 2 (``path: "distributed"`` in
    ``chiprun_out/chip_smoke_shapes.json``; ``dist_shapes`` lines sum
    each run);
-7. the serving slice (``serving`` line), with every launch counter at 0:
+7. the serving slice (``serving`` line), with every launch counter at 0
+   after the warm-up:
    one ``repro_torch.serve.Server(max_inflight=2)`` hosts two int8
    tenants at full width, A = ``mobilenet_v2_paper`` on the spatial split
    of the 8 ratings above and B = ``mobilenet_v2`` at 96x96 on a
    neuron-mode split over 4 MCUs rated (3, 1, 2, 0.5) with an SLO of p99
    <= 250 ms, each with the constants of one seed-0 calibration on the
    card; 32 requests a tenant through ``Server.submit`` must equal
-   ``Session.run`` byte for byte; then each tenant's saturation
-   throughput, 3 s of open-loop Poisson load at 0.4x of it (no failed
-   ticket), and 3 s of tenant B at 2x (it must shed, every rejection a
-   typed ``Overloaded`` counted by reason, the accepted p99 <= 1 s); the
-   counters must then show ``qgemm`` and ``dwconv3x3_bands`` (A) and
-   ``dwconv3x3`` (B) launched; last, each tenant's dispatch p50 at bucket 8
-   at saturation under ``max_inflight`` 1 and 2.  A ``dw_many_shards`` line
+   ``Session.run`` byte for byte, under a profiler trace whose ``qgemm``
+   and ``dwconv3x3`` kernels must number the launches the plans list for
+   the dispatches made; then each tenant's saturation throughput, 3 s of
+   open-loop Poisson load at 0.4x of it (no failed ticket), and 3 s of
+   tenant B at 2x (it must shed, every rejection a typed ``Overloaded``
+   counted by reason, the accepted p99 <= 1 s); every dispatch must have
+   replayed a graph (the counters still at 0), and the traced part must
+   have run ``qgemm`` and ``dwconv3x3_bands`` (A) and ``dwconv3x3`` (B);
+   last, each tenant's dispatch p50 at bucket 8 at saturation under
+   ``max_inflight`` 1 and 2.  A ``dw_many_shards`` line
    follows: a neuron-mode split of ``mobilenet_v2_smoke`` over 72 workers,
-   whose 5 depthwise layers (72 shards each) take two launches each,
-   every table equal to the plain version and the batch equal to the CPU's;
+   whose 5 depthwise layers (72 shards each) take two launches each (the
+   kernels of a profiler trace of the batch), every table equal to the
+   plain version and the batch equal to the CPU's;
 8. the LM serving path, ``qwen3-14b`` at its published width:
    (a) 2 layers in float32 with TF32 off: prefill and 4 greedy decode
        steps through the serve steps must give the full forward's
@@ -167,8 +176,10 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
    its largest error
    against its plain version, and the sums over those launches of its
    time, its bound, and the plain and library times at each launch's
-   shape; a CNN kernel also carries its launches in the serving run
-   (``serving_launches``);
+   shape; a CNN kernel also carries its launches in the serving run's
+   traced part (``serving_launches``).  An engine plan's launches by
+   wrapper are the plan's list, held against the trace's kernels by name:
+   ``dwconv3x3`` and ``dwconv3x3_bands`` launch the same kernel;
 13. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero, as does a machine without CUDA or a
@@ -258,6 +269,32 @@ def trace_calls(fn, n: int, pad: bool = False):
             pad_trace()
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == DeviceType.CUDA], wall_us, out
+
+
+# the engine's kernels by their names on the card (``dwconv3x3`` and
+# ``dwconv3x3_bands`` launch the same kernel)
+ENGINE_KERNELS = {"qgemm": "qgemm_kernel", "dwconv": "dwconv3x3_kernel"}
+
+
+def engine_kind(wrapper: str) -> str:
+    return "qgemm" if wrapper == "qgemm" else "dwconv"
+
+
+def traced_kernels(fn):
+    """Run ``fn`` once under the profiler, between two ``pad_trace``
+    calls, and count the engine's kernels on the card by name
+    (ENGINE_KERNELS): a replayed CUDA graph calls no wrapper, so its
+    launches show in a trace alone.  ``fn`` returns its result and the
+    counts the run should show; a trace that shows others is made again,
+    up to TRACE_TRIES runs in all (traces have dropped kernels).  Returns
+    the last run's result, counts and wanted counts, and the runs made."""
+    for tries in range(1, TRACE_TRIES + 1):
+        events, _, (out, want) = trace_calls(fn, 1, pad=True)
+        got = {kind: sum(name in e for e, _ in events)
+               for kind, name in ENGINE_KERNELS.items()}
+        if got == want:
+            break
+    return out, got, want, tries
 
 
 # -- main-path launches -------------------------------------------------------
@@ -621,9 +658,12 @@ def per_run(recs, kernel, run) -> dict:
 
 def serve_path(mode, model, qmodel, xs, dev, expect):
     """Drive one int8 plan on the card; hold it against the port on the CPU.
-    ``expect`` is the launches per kernel that ``path_launches`` counted for
-    one forward of this plan: the run must make exactly those.  Returns the
-    launches of this run and the ms of a request served alone."""
+    ``expect`` is the launches per wrapper that ``path_launches`` counted
+    for one forward of this plan: the run's trace must show exactly those
+    kernels, and no wrapper may launch (the forward replays the graph that
+    the warm-up captured).  Returns the launches of this run (the plan's,
+    by wrapper, so held), the trace's kernels and the ms of a request
+    served alone."""
     from repro_torch.api import Session
     from repro_torch.core import split_model
     plan = split_model(model, RATINGS, mode=mode)
@@ -634,17 +674,24 @@ def serve_path(mode, model, qmodel, xs, dev, expect):
     for fn in wrappers.values():
         fn.launches = 0
     wrappers["qgemm"].weight_copies = 0
-    ys = sess.submit_many(xs)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    want = {kind: sum(n for name, n in expect.items()
+                      if name != "decode_attn" and engine_kind(name) == kind)
+            for kind in ENGINE_KERNELS}
+    ys, kernels, _, tries = traced_kernels(
+        lambda: (sess.submit_many(xs), want))
+    walked = {name: fn.launches for name, fn in wrappers.items()
+              if fn.launches}
+    if walked:
+        raise AssertionError(f"{mode} path walked the plan: {walked}")
     if wrappers["qgemm"].weight_copies:
         raise AssertionError(f"{mode} path copied "
                              f"{wrappers['qgemm'].weight_copies} weights")
-    if launches != expect:
-        raise AssertionError(f"{mode} path launched {launches}, its plan "
-                             f"counts {expect}")
+    if kernels != want:
+        raise AssertionError(f"{mode} path ran {kernels} kernels in each of "
+                             f"{tries} traces, its plan counts {want}")
     for name in ("qgemm", "dwconv3x3" if mode != "spatial" else
                  "dwconv3x3_bands"):
-        if launches[name] <= 0:
+        if expect[name] <= 0:
             raise AssertionError(f"{mode} path launched no {name}")
     cpu = Session(plan, precision="int8", qmodel=qmodel, device="cpu",
                   max_batch=BATCH)
@@ -664,8 +711,15 @@ def serve_path(mode, model, qmodel, xs, dev, expect):
     if wrappers["qgemm"].weight_copies:
         raise AssertionError(f"{mode} path copied "
                              f"{wrappers['qgemm'].weight_copies} weights")
-    rec = dict(mode=mode, launches=launches, bit_exact_vs_cpu=True,
-               weight_copies=0,
+    # the warm-up captured one graph a bucket; every dispatch since replayed
+    graphs = sess.engine.graph_stats()
+    if graphs != dict(captures=len(sess.buckets), eager=len(sess.buckets),
+                      replays=len(sess.buckets) + tries + len(xs)):
+        raise AssertionError(f"{mode}: graphs {graphs}, buckets "
+                             f"{sess.buckets}")
+    rec = dict(mode=mode, launches=dict(expect), kernels_traced=kernels,
+               traces=tries, bit_exact_vs_cpu=True, weight_copies=0,
+               graphs=graphs,
                ms_request_batch1=statistics.median(one_ms))
     print(f"path {json.dumps(rec)}")
     return rec
@@ -1000,17 +1054,20 @@ def serving_phase(model, dev):
     B = ``mobilenet_v2(input_hw=(96, 96))`` on a neuron-mode split of
     SERVE_RATINGS with SLO p99 <= SERVE_P99_TARGET_S; their int8 constants
     from one seed-0 calibration each on the card, made before ``start()``.
-    With every launch counter at 0: SERVE_REQUESTS requests a tenant through
-    ``Server.submit`` must equal ``Session.run`` byte for byte; then each
-    tenant's ``saturation_throughput``, open-loop Poisson at 0.4x of it for
+    With every launch counter at 0 after the warm-up: SERVE_REQUESTS
+    requests a tenant through ``Server.submit`` must equal ``Session.run``
+    byte for byte, under a profiler trace whose engine kernels must number
+    what ``path_launches`` lists for the dispatches made, bucket by bucket
+    (``launches``, by wrapper: ``qgemm``, ``dwconv3x3_bands`` (A) and
+    ``dwconv3x3`` (B) must be among them); then each tenant's
+    ``saturation_throughput``, open-loop Poisson at 0.4x of it for
     SERVE_STEADY_S (no failure), and B at 2x its saturation for
     SERVE_OVERLOAD_S (typed shedding counted by reason, accepted p99 <=
-    SERVE_P99_BOUND_S).  The counters read then must show ``qgemm``,
-    ``dwconv3x3_bands`` (A) and ``dwconv3x3`` (B).  Last, each tenant's
-    dispatch p50 at bucket 8 at saturation under max_inflight 1 and 2 (the
-    dispatch's own device time).  Returns the record and the launches of
-    one forward at each bucket the tenants dispatched (for the shape
-    checks)."""
+    SERVE_P99_BOUND_S).  The counters must still read 0: every dispatch
+    replayed a graph.  Last, each tenant's dispatch p50 at bucket 8 at
+    saturation under max_inflight 1 and 2 (the dispatch's own device time).
+    Returns the record and the launches of one forward at each bucket the
+    tenants dispatched (for the shape checks)."""
     import numpy as np
     from repro_torch.api import Session
     from repro_torch.core import split_model
@@ -1033,11 +1090,19 @@ def serving_phase(model, dev):
                          max_batch=SERVE_MAX_BATCH)
         want[name] = [oracle.run(x) for x in xs[name]]
     srv = _serving_server(tenants, qmodels, 2, dev)
+    engines = {name: srv.session(name).engine for name in tenants}
     wrappers = counters()
     for fn in wrappers.values():
         fn.launches = 0
     shed = _ShedCounter(srv)
-    with srv:
+    names = ("qgemm", "dwconv3x3_bands", "dwconv3x3")
+
+    def exact():
+        """The requests against ``Session.run``; returns the launches the
+        plans list for the dispatches they made, by wrapper and by kernel
+        on the card."""
+        before = {name: srv.session(name).stats().per_bucket
+                  for name in tenants}
         tickets = {name: [] for name in tenants}
         for i in range(SERVE_REQUESTS):
             for name in tenants:
@@ -1049,6 +1114,21 @@ def serving_phase(model, dev):
                         or got.tobytes() != want[name][i].tobytes()):
                     raise AssertionError(f"serving: tenant {name} request "
                                          f"{i} != Session.run")
+        listed = dict.fromkeys(names, 0)
+        for name in tenants:
+            for b, n in srv.session(name).stats().per_bucket.items():
+                for k, _, _ in path_launches(engines[name], b):
+                    listed[k] += n - before[name].get(b, 0)
+        kinds = {kind: sum(n for k, n in listed.items()
+                           if engine_kind(k) == kind)
+                 for kind in ENGINE_KERNELS}
+        return listed, kinds
+
+    with srv:
+        launches, kernels, kinds, tries = traced_kernels(exact)
+        if kernels != kinds:
+            raise AssertionError(f"serving ran {kernels} kernels in each of "
+                                 f"{tries} traces, its plans count {kinds}")
         probe = {name: xs[name][0] for name in tenants}
         makers = {name: (lambda x=x: x) for name, x in probe.items()}
         sat = {name: saturation_throughput(srv, name, makers[name],
@@ -1063,8 +1143,10 @@ def serving_phase(model, dev):
         over = run_open_loop(shed, {"b": 2.0 * sat["b"]}, {"b": makers["b"]},
                              duration_s=SERVE_OVERLOAD_S, seed=2)["b"]
         qos = {name: srv.stats(name) for name in tenants}
-    launches = {name: wrappers[name].launches
-                for name in ("qgemm", "dwconv3x3_bands", "dwconv3x3")}
+    walked = {name: fn.launches for name, fn in wrappers.items()
+              if fn.launches}
+    if walked:
+        raise AssertionError(f"serving walked the plan: {walked}")
     if not over.rejected > 0:
         raise AssertionError(f"serving overload shed nothing: {over}")
     if (sum(shed.reasons.values()) != over.rejected
@@ -1081,7 +1163,6 @@ def serving_phase(model, dev):
             raise AssertionError(f"serving launched no {name}: {launches}")
     buckets = {name: sorted(srv.session(name).stats().per_bucket)
                for name in tenants}
-    engines = {name: srv.session(name).engine for name in tenants}
     del srv
 
     # the dispatch's own time at bucket 8 at saturation, one pipeline
@@ -1121,7 +1202,10 @@ def serving_phase(model, dev):
         steady={name: load(r) for name, r in steady.items()},
         overload=dict(load(over), reasons=dict(shed.reasons),
                       p99_bound_ms=SERVE_P99_BOUND_S * 1e3),
-        launches=launches, buckets=buckets, dispatch_p50=dispatch_p50,
+        launches=launches, kernels_traced=kernels, traces=tries,
+        buckets=buckets, graphs={name: engine.graph_stats()
+                for name, engine in engines.items()},
+        dispatch_p50=dispatch_p50,
         qos={name: dict(latency_p50_ms=q.latency_p50_s * 1e3,
                         latency_p99_ms=q.latency_p99_s * 1e3,
                         completed=q.completed, rejected=q.rejected,
@@ -1138,8 +1222,9 @@ def dw_many_shards(dev) -> dict:
     equal workers: each depthwise layer is a table of MANY_WORKERS shards,
     more than one launch takes, so it runs in ``ceil(n / MAX_SHARDS)``
     launches.  Each layer's table on the card equals the plain version,
-    and a batch served on the card equals the CPU's, bit for bit, with the
-    counters showing exactly those launches."""
+    and a batch served on the card equals the CPU's, bit for bit, with a
+    profiler trace of it showing exactly those launches (the batch replays
+    the graph that the warm-up captured)."""
     import numpy as np
     import torch
     from repro_torch.api import Session
@@ -1168,14 +1253,17 @@ def dw_many_shards(dev) -> dict:
             raise AssertionError(f"dw_many_shards {layer.name}: != plain")
         layers.append(dict(layer=layer.name, shards=len(table.rows),
                            launches=len(table.launches)))
-    wrappers = counters()
-    for fn in wrappers.values():
-        fn.launches = 0
-    ys = gpu.submit_many(xs)
-    launched = wrappers["dwconv3x3"].launches
-    if launched != sum(r["launches"] for r in layers):
-        raise AssertionError(f"dw_many_shards: {launched} launches for "
-                             f"{layers}")
+    # path_launches lists one depthwise launch a layer: the tables split
+    # them here
+    listed = [engine_kind(k) for k, _, _ in path_launches(gpu.engine, 4)]
+    want = dict(qgemm=listed.count("qgemm"),
+                dwconv=sum(r["launches"] for r in layers))
+    ys, kernels, _, tries = traced_kernels(
+        lambda: (gpu.submit_many(xs), want))
+    launched = kernels["dwconv"]
+    if kernels != want:
+        raise AssertionError(f"dw_many_shards: {kernels} kernels in each of "
+                             f"{tries} traces, listed {want}, for {layers}")
     if not all(r["shards"] == MANY_WORKERS and r["launches"] > 1
                for r in layers) or len(layers) != 5:
         raise AssertionError(f"dw_many_shards: tables {layers}")

@@ -332,8 +332,9 @@ class Session:
 
     # -- warmup --------------------------------------------------------------
     def warmup(self, buckets: tuple[int, ...] | None = None) -> None:
-        """Upload the constants and build the kernels ahead of serving: one
-        zero batch per bucket size."""
+        """Upload the constants, build the kernels and, on CUDA, capture
+        each bucket's graph ahead of serving: one zero batch per bucket
+        size."""
         shape = tuple(self.model.input_shape)
         for b in (buckets or self.buckets):
             self.engine.run_batch(np.zeros((int(b), *shape), np.float32),

@@ -34,7 +34,10 @@ Two executors share those semantics:
   convs and linear shards, ``dwconv`` for 3x3 depthwise — and the wrappers
   alone decide, from the tensor's device, between the CUDA kernel and its
   plain version.  So the card and the CPU differ only inside the kernels,
-  and int8 output is bit-identical on both and to the reference.
+  and int8 output is bit-identical on both and to the reference.  On CUDA
+  the first forward at each (mode, input shape) walks the plan once, then
+  is captured as one CUDA graph, which every later forward at that key
+  replays: the same kernels in the same order, one launch from the host.
 
 Every entry point (``SplitExecutor``, ``CompiledSplitExecutor``,
 ``reference_forward``) runs on CUDA unless the caller passes
@@ -575,6 +578,21 @@ class _DeviceConstants:
         self.modes: set[str] = set()
 
 
+class _Graph:
+    """One captured forward at one (mode, input shape): the graph, its
+    static input ``x`` (each batch is copied into it) and its static output
+    ``y``."""
+
+    def __init__(self, graph, x, y):
+        self.graph, self.x, self.y = graph, x, y
+
+    def replay(self):
+        """Enqueue the forward on the current stream; returns a copy of the
+        output, which a later replay does not overwrite."""
+        self.graph.replay()
+        return self.y.clone()
+
+
 class CompiledSplitExecutor:
     """Runs a whole :class:`SplitPlan` batch-first on one device.
 
@@ -595,6 +613,10 @@ class CompiledSplitExecutor:
     ``run``/``run_batch`` accept float inputs in both modes; int8 mode
     quantizes on the device.  ``collect_activations`` is not supported —
     use the eager :class:`SplitExecutor` for calibration.
+
+    On CUDA the forward at each (mode, input shape) is captured once as a
+    CUDA graph and replayed from then on (:meth:`run_batch_async`); the
+    graphs belong to the instance and hold its device constants.
     """
 
     def __init__(self, plan: SplitPlan, qmodel: QuantizedModel | None = None,
@@ -610,6 +632,13 @@ class CompiledSplitExecutor:
         self._banded_cache: dict[tuple[int, ...], _BandedBlock] = {}
         self._fingerprint_cache: str | None = None
         self._consts: _DeviceConstants | None = None
+        self._graphs: dict[tuple, _Graph] = {}
+        # a graph's static input is shared: its copy, replay and output
+        # copy are enqueued by one thread at a time
+        self._graph_lock = threading.Lock()
+        self._upload_stream = (torch.cuda.Stream(self.device)
+                               if self.device.type == "cuda" else None)
+        self._graph_stats = dict(captures=0, replays=0, eager=0)
         self._save_scale: dict[str, float] = {}
         if qmodel is not None:
             for i, layer in enumerate(plan.model.layers):
@@ -929,12 +958,38 @@ class CompiledSplitExecutor:
                 t_ns = t1_ns
         return cur
 
+    def _capture(self, x, mode: str, dispatch: int | None) -> _Graph:
+        """The first forward at a (mode, shape) on CUDA: walk the plan once
+        on ``x`` (the lazy work must not fall in a capture: the kernels'
+        build and entry points, the constants' upload, the SM count, the
+        split-K counters), wait for the device, then capture the walk on
+        ``x``, which stays the graph's static input."""
+        self._forward(x, mode)
+        self._graph_stats["eager"] += 1
+        torch.cuda.synchronize(self.device)
+        graph = torch.cuda.CUDAGraph()
+        # a capture needs a stream of its own (nothing runs on it), and
+        # only this thread's calls must stay capture-safe: a server's
+        # scheduler may launch meanwhile
+        with torch.cuda.stream(torch.cuda.Stream(self.device)):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                y = self._forward(x, mode, dispatch)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        self._graph_stats["captures"] += 1
+        return _Graph(graph, x, y)
+
     def _input(self, xs):
+        """The batch as a float32 tensor: for a CUDA engine pinned on the
+        host (a pinned copy keeps the upload asynchronous), else on the
+        engine's device."""
         x = torch.as_tensor(np.ascontiguousarray(xs, np.float32))
         if self.device.type == "cuda":
-            # pinned staging keeps the copy asynchronous: a pageable copy
-            # would wait for the batch still running on the stream
-            return x.pin_memory().to(self.device, non_blocking=True)
+            return x.pin_memory()
         return x.to(self.device)
 
     # -- public API ---------------------------------------------------------
@@ -953,29 +1008,71 @@ class CompiledSplitExecutor:
         stream, so the caller can overlap host work (forming the next
         micro-batch) with this batch's compute and read it later.
 
+        On CUDA the batch is uploaded on a stream of the instance's own,
+        copied on the current stream into the static input of the graph of
+        its (mode, shape), and the graph is replayed on the current
+        stream; the first dispatch at a key captures that graph first
+        (:meth:`_capture`).  On the CPU the plan is walked as it is.
+
         ``dispatch``: the caller's dispatch id, given while spans are
         recorded (:mod:`repro_torch.trace`): ``executor.input``,
-        ``executor.forward`` and the blocks' spans carry it.  None records
-        nothing."""
+        ``executor.forward`` (``graph``: ``"replay"``, ``"capture"`` or
+        ``"eager"``) and, where the plan is walked, the blocks' spans carry
+        it.  None records nothing."""
         t0_ns = None if dispatch is None else time.perf_counter_ns()
         x = self._input(xs)
-        if t0_ns is not None:
-            t1_ns = time.perf_counter_ns()
-            trace.record("executor.input", dispatch, t0_ns, t1_ns)
-        if mode == "float":
-            with _full_fp32():
+        fp32 = _full_fp32 if mode == "float" else contextlib.nullcontext
+        if self.device.type != "cuda":
+            if t0_ns is not None:
+                t1_ns = time.perf_counter_ns()
+                trace.record("executor.input", dispatch, t0_ns, t1_ns)
+            with fp32():
                 y = self._forward(x, mode, dispatch)
+            with self._graph_lock:
+                self._graph_stats["eager"] += 1
+            how = "eager"
         else:
-            y = self._forward(x, mode, dispatch)
+            key = (mode, tuple(x.shape))
+            stream = torch.cuda.current_stream(self.device)
+            # the upload need not wait for the batch still running on the
+            # caller's stream: it runs on a stream of its own
+            with torch.cuda.stream(self._upload_stream):
+                x = x.to(self.device, non_blocking=True)
+            stream.wait_stream(self._upload_stream)
+            x.record_stream(stream)
+            with self._graph_lock:
+                graph = self._graphs.get(key)
+                if graph is not None:
+                    graph.x.copy_(x)
+                if t0_ns is not None:
+                    t1_ns = time.perf_counter_ns()
+                    trace.record("executor.input", dispatch, t0_ns, t1_ns)
+                with fp32():
+                    how = "replay"
+                    if graph is None:
+                        graph = self._graphs[key] = self._capture(
+                            x, mode, dispatch)
+                        how = "capture"
+                    y = graph.replay()
+                self._graph_stats["replays"] += 1
         if t0_ns is not None:
             trace.record("executor.forward", dispatch, t1_ns,
-                         time.perf_counter_ns())
+                         time.perf_counter_ns(), {"graph": how})
         return y
+
+    def graph_stats(self) -> dict[str, int]:
+        """This instance's forwards by how they ran: ``captures`` (CUDA
+        graphs captured), ``replays`` (graphs replayed, the capturing
+        dispatch's included) and ``eager`` (plans walked launch by launch:
+        every forward on the CPU, and the one before each capture).  A
+        replay calls no kernel wrapper: the wrappers' ``.launches`` count
+        the walks alone, the capture's own included."""
+        return dict(self._graph_stats)
 
     def warmup(self, input_shape=None, batch: int | None = None,
                mode: str = "float") -> None:
-        """Upload the constants and build the kernels ahead of serving
-        (zeros input)."""
+        """Upload the constants, build the kernels and, on CUDA, capture the
+        graph ahead of serving (zeros input)."""
         shape = tuple(input_shape or self.plan.model.input_shape)
         if batch is None:
             self.run(np.zeros(shape, np.float32), mode)

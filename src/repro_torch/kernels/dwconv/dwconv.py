@@ -22,7 +22,8 @@ kernel (``pad`` rows and columns on each side):
   positions.
 
 The first and third count on ``dwconv3x3.launches``, the others on
-``dwconv3x3_bands.launches``.  A CPU tensor takes the plain version
+``dwconv3x3_bands.launches`` (a launch captured into a CUDA graph counts
+once, its replays do not).  A CPU tensor takes the plain version
 (:mod:`.ref`); a CUDA tensor launches the kernel or raises.
 
 :func:`dwconv_schedule` picks a CTA's tile (channels x output rows) from

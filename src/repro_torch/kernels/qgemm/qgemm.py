@@ -4,7 +4,8 @@ Port of the TPU kernel ``qgemm`` in ``repro/kernels/qgemm/qgemm.py``.  The
 CUDA kernel masks ragged M, N and K edges itself, so unlike the TPU kernel
 it takes any shape: the host pads nothing.  A CPU tensor takes the plain
 version (:func:`.ref.qgemm_ref`); a CUDA tensor launches the kernel or
-raises.  ``qgemm.launches`` counts kernel launches (one kernel each).
+raises.  ``qgemm.launches`` counts kernel launches (one kernel each); a
+launch captured into a CUDA graph counts once, its replays do not.
 
 The kernel reads the weight K-contiguous.  The engine uploads each weight
 as (N, K) and passes its (K, N) transposed view (``stride(0) == 1``), so
@@ -73,7 +74,10 @@ _counters: dict[torch.device, torch.Tensor] = {}
 
 def _tile_counters(device, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 arrival counters on ``device``, kept
-    across launches (every split launch leaves them at 0)."""
+    across launches (every split launch leaves them at 0).  ``n`` is below
+    the SM count (a split launch has fewer tiles than SMs), so the first
+    256 are never outgrown and a captured CUDA graph may keep their
+    address."""
     c = _counters.get(device)
     if c is None or c.numel() < n:
         c = _counters[device] = torch.zeros(max(n, 256), dtype=torch.int32,

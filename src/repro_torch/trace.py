@@ -15,11 +15,15 @@ name               key            interval (attrs)
 =================  =============  =========================================
 session.dispatch   dispatch id    all of ``Session.dispatch_async``
                                   (``n`` requests, ``bucket``)
-executor.input     dispatch id    the batch's pinned copy and its upload
-executor.forward   dispatch id    the plan's forward, enqueued
+executor.input     dispatch id    the batch's pinned copy, its upload and,
+                                  on CUDA, its copy into the graph's input
+executor.forward   dispatch id    the plan's forward, enqueued (``graph``:
+                                  ``replay``, ``capture`` or ``eager``)
 executor.block     dispatch id    one block group of the plan, its residual
                                   add included (``first`` and ``last``
-                                  layer, ``mode`` spatial or flat, ``kind``)
+                                  layer, ``mode`` spatial or flat, ``kind``);
+                                  only where the plan is walked: on the
+                                  CPU, and in the capture of a CUDA graph
 session.output     dispatch id    the pinned output buffer, its copy and
                                   the dispatch's closing event (CUDA only)
 session.wait       dispatch id    ``InflightDispatch.wait`` (``device_s``)

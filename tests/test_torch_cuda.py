@@ -318,7 +318,9 @@ def test_dwconv_smem_layout_matches_schedule(cuda):
 def test_forward_one_depthwise_launch_per_layer(cuda, mode):
     """A forward makes one depthwise launch per depthwise layer: on the
     flat plans one ``dwconv3x3`` launch over all shards, on the spatial
-    plan one ``dwconv3x3_bands`` launch over all bands."""
+    plan one ``dwconv3x3_bands`` launch over all bands.  The first batch
+    walks the plan twice (once eagerly, once into the graph), and a replay
+    runs one depthwise kernel a layer."""
     model = mobilenet_v2_smoke()
     rng = np.random.default_rng(1)
     calib = [rng.standard_normal(model.input_shape).astype(np.float32)
@@ -327,14 +329,15 @@ def test_forward_one_depthwise_launch_per_layer(cuda, mode):
     plan = T.split_model(model, [1.0, 2.7, 0.35, 1.6, 0.5, 1.15], mode=mode)
     cpu = Session(plan, calibration=calib, device="cpu", max_batch=4)
     eng = T.CompiledSplitExecutor(plan, cpu.qmodel, device=cuda)
-    eng.run_batch(xs, mode="int8")
     before = dwconv3x3.launches, dwconv3x3_bands.launches
-    got = eng.run_batch(xs, mode="int8")
+    eng.run_batch(xs, mode="int8")
     n_dw = sum(layer.kind == "dwconv" for layer in model.layers)
     flat = mode != "spatial"
     assert (dwconv3x3.launches - before[0],
             dwconv3x3_bands.launches - before[1]) == (
-                (n_dw, 0) if flat else (0, n_dw))
+                (2 * n_dw, 0) if flat else (0, 2 * n_dw))
+    got, kernels = _traced_kernels(lambda: eng.run_batch(xs, mode="int8"))
+    assert kernels[1] == n_dw
     np.testing.assert_array_equal(
         got, T.CompiledSplitExecutor(plan, cpu.qmodel, device="cpu")
         .run_batch(xs, mode="int8"))
@@ -359,9 +362,8 @@ def test_session_over_72_workers_on_card_equals_cpu(cuda):
     cpu = Session(plan, calibration=calib, device="cpu", max_batch=4)
     gpu = Session(plan, qmodel=cpu.qmodel, device=cuda, max_batch=4)
     gpu.warmup()
-    before = dwconv3x3.launches
-    got = gpu.submit_many(xs)
-    assert dwconv3x3.launches - before == len(dw) * -(-72 // MAX_SHARDS)
+    got, kernels = _traced_kernels(lambda: gpu.submit_many(xs))
+    assert kernels[1] == len(dw) * -(-72 // MAX_SHARDS)
     np.testing.assert_array_equal(got, cpu.submit_many(xs))
 
 
@@ -474,13 +476,16 @@ def test_server_on_card(cuda):
     srv._running = True             # queue before the scheduler starts
     tickets = {name: [srv.submit(name, x) for x in xs] for name in plans}
     srv._running = False
-    before = qgemm.launches, dwconv3x3.launches, dwconv3x3_bands.launches
-    with srv:
-        outs = {name: [t.result(timeout=120.0) for t in ts]
-                for name, ts in tickets.items()}
-    assert all(now > was for now, was in zip(
-        (qgemm.launches, dwconv3x3.launches, dwconv3x3_bands.launches),
-        before))
+    before = _launch_counts()
+
+    def serve():
+        with srv:
+            return {name: [t.result(timeout=120.0) for t in ts]
+                    for name, ts in tickets.items()}
+    # the tenants captured their buckets' graphs when added: every
+    # dispatch replays, which no wrapper counts and the trace shows
+    outs, kernels = _traced_kernels(serve)
+    assert _launch_counts() == before and all(n > 0 for n in kernels)
     for name, ys in outs.items():
         assert srv.session(name).stats().batches < len(xs)
         for x, y in zip(xs, ys):
@@ -532,6 +537,22 @@ def _smoke_plan_and_qmodel(mode):
 
 def _launch_counts():
     return (qgemm.launches, dwconv3x3.launches, dwconv3x3_bands.launches)
+
+
+def _traced_kernels(fn):
+    """``fn()`` and the ``qgemm`` and ``dwconv3x3`` kernels (both depthwise
+    wrappers launch the latter) a profiler trace of it shows on the card:
+    a replayed CUDA graph calls no wrapper, so its launches show there."""
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return out, (sum("qgemm_kernel" in n for n in names),
+                 sum("dwconv3x3_kernel" in n for n in names))
 
 
 def _expected_counts(launches):
@@ -604,6 +625,174 @@ def test_distributed_inprocess_on_card_equals_session(cuda, mode):
     assert delta[0] > 0 and delta[1] > 0
     np.testing.assert_array_equal(y, sess.run(x))
     assert dependency_edges(plan) <= edges
+
+
+def _graph_engine(mode, dev, qmodel=True):
+    """An engine of the smoke model's ``mode`` plan on ``dev`` (int8 with
+    ``qmodel``, else float only) and seeded float batches for it."""
+    model, plan, qm = _smoke_plan_and_qmodel(mode)
+    eng = T.CompiledSplitExecutor(plan, qm if qmodel else None, device=dev)
+    rng = np.random.default_rng(7)
+
+    def batch(n):
+        return rng.standard_normal((n, *model.input_shape)).astype(np.float32)
+    return eng, batch
+
+
+def _walk(eng, xs, mode):
+    """The plan walked launch by launch on the card, as before graphs."""
+    from repro_torch.core.executor import _full_fp32
+    x = torch.from_numpy(xs).to(eng.device)
+    if mode == "float":
+        with _full_fp32():
+            return eng._forward(x, mode).cpu().numpy()
+    return eng._forward(x, mode).cpu().numpy()
+
+
+@pytest.mark.parametrize("batch", [8, 32])
+@pytest.mark.parametrize("mode", ["spatial", "kernel"])
+def test_graph_replay_equals_eager_walk_int8(cuda, mode, batch):
+    """Replays of the captured forward give the eager walk's int8 answers
+    bit for bit, on both plans at batch 8 and 32, and the CPU's."""
+    eng, make = _graph_engine(mode, cuda)
+    xs = [make(batch) for _ in range(3)]
+    got = [eng.run_batch(x, mode="int8") for x in xs]
+    assert eng.graph_stats() == dict(captures=1, replays=3, eager=1)
+    cpu = T.CompiledSplitExecutor(eng.plan, eng.qmodel, device="cpu")
+    for x, y in zip(xs, got):
+        np.testing.assert_array_equal(y, _walk(eng, x, "int8"))
+        np.testing.assert_array_equal(y, cpu.run_batch(x, mode="int8"))
+
+
+@pytest.mark.parametrize("mode", ["spatial", "kernel"])
+def test_graph_replay_float_matches_eager_walk(cuda, mode):
+    """Float mode captures and replays in full float32: within 1e-5 of the
+    eager walk (cuDNN may pick another algorithm in the capture)."""
+    eng, make = _graph_engine(mode, cuda, qmodel=False)
+    for x in (make(8), make(8)):
+        got = eng.run_batch(x, mode="float")
+        want = _walk(eng, x, "float")
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+    assert eng.graph_stats() == dict(captures=1, replays=2, eager=1)
+
+
+def test_graph_dispatches_in_flight_keep_their_answers(cuda):
+    """Two dispatches in flight with different inputs each return their
+    own answers, and an output already returned is not changed by the
+    dispatches after it (they share the graph's static buffers)."""
+    eng, make = _graph_engine("spatial", cuda)
+    xs = [make(8) for _ in range(5)]
+    want = [_walk(eng, x, "int8") for x in xs]
+    eng.run_batch(xs[0], mode="int8")             # captures
+    first = eng.run_batch_async(xs[0], mode="int8")
+    second = eng.run_batch_async(xs[1], mode="int8")
+    np.testing.assert_array_equal(second.cpu().numpy(), want[1])
+    later = [eng.run_batch_async(x, mode="int8") for x in xs[2:]]
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(first.cpu().numpy(), want[0])
+    for y, w in zip(later, want[2:]):
+        np.testing.assert_array_equal(y.cpu().numpy(), w)
+    sess = Session(eng.plan, qmodel=eng.qmodel, device=cuda, max_batch=8)
+    disps = [sess.dispatch_async(x) for x in xs[:2]]
+    for d, w in zip(disps, want):
+        np.testing.assert_array_equal(d.wait(), w)
+
+
+def test_graph_threads_share_an_engine(cuda):
+    """Twelve threads dispatch their own batches through one engine at
+    once, with a short switch interval: the graph's static input is
+    shared, so each copy, replay and output copy must be enqueued whole,
+    and every thread gets its own answers."""
+    import sys
+    import threading
+    eng, make = _graph_engine("spatial", cuda)
+    xs = [make(4) for _ in range(12)]
+    want = [_walk(eng, x, "int8") for x in xs]
+    eng.run_batch(xs[0], mode="int8")             # captures
+    got, errors = {}, []
+
+    def client(k):
+        try:
+            got[k] = [eng.run_batch(xs[k], mode="int8") for _ in range(5)]
+        except Exception as e:  # noqa: BLE001 — re-raised on the main thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(len(xs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    for k, w in enumerate(want):
+        for y in got[k]:
+            np.testing.assert_array_equal(y, w)
+    assert eng.graph_stats() == dict(captures=1, replays=61, eager=1)
+
+
+def test_graph_per_batch_size_and_its_stats(cuda):
+    """``graph_stats`` counts one capture at a key, then replays; a new
+    batch size captures a graph of its own, and each key keeps its own."""
+    eng, make = _graph_engine("kernel", cuda)
+    eng.run_batch(make(4), mode="int8")
+    assert eng.graph_stats() == dict(captures=1, replays=1, eager=1)
+    for _ in range(3):
+        eng.run_batch(make(4), mode="int8")
+    assert eng.graph_stats() == dict(captures=1, replays=4, eager=1)
+    x2 = make(2)
+    y2 = eng.run_batch(x2, mode="int8")
+    assert eng.graph_stats() == dict(captures=2, replays=5, eager=2)
+    assert set(eng._graphs) == {("int8", (4, *eng.plan.model.input_shape)),
+                                ("int8", (2, *eng.plan.model.input_shape))}
+    eng.run_batch(make(4), mode="int8")
+    np.testing.assert_array_equal(eng.run_batch(x2, mode="int8"), y2)
+    assert eng.graph_stats() == dict(captures=2, replays=7, eager=2)
+
+
+@pytest.mark.parametrize("mode", ["spatial", "kernel"])
+def test_graph_replay_calls_no_wrapper(cuda, mode):
+    """The first dispatch at a key walks the plan twice through the
+    wrappers (eagerly, then into the capture); a replay calls no wrapper,
+    so their ``.launches`` stay, and runs the walk's kernels."""
+    eng, make = _graph_engine(mode, cuda)
+    x = make(8)
+    before = _launch_counts()
+    eng.run_batch(x, mode="int8")                 # walk, capture, replay
+    first = tuple(a - b for a, b in zip(_launch_counts(), before))
+    before = _launch_counts()
+    _walk(eng, x, "int8")
+    walk = tuple(a - b for a, b in zip(_launch_counts(), before))
+    before = _launch_counts()
+    _, kernels = _traced_kernels(lambda: eng.run_batch(x, mode="int8"))
+    assert walk[0] > 0 and sum(walk[1:]) > 0
+    assert first == tuple(2 * n for n in walk)
+    assert _launch_counts() == before
+    assert kernels == (walk[0], sum(walk[1:]))
+
+
+def test_graph_kernels_reach_the_profiler(cuda):
+    """The kernels of a replay appear one by one in a ``torch.profiler``
+    trace, also where the profiler first runs after the capture (as the
+    benchmark's tracer warms it): two replays show twice the ``qgemm`` and
+    ``dwconv`` kernels that the eager walk launches."""
+    eng, make = _graph_engine("spatial", cuda)
+    x = make(8)
+    eng.run_batch(x, mode="int8")
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        torch.cuda.synchronize()
+    before = _launch_counts()
+    _walk(eng, x, "int8")
+    walk = tuple(a - b for a, b in zip(_launch_counts(), before))
+    _, kernels = _traced_kernels(
+        lambda: [eng.run_batch(x, mode="int8") for _ in range(2)])
+    assert kernels == (2 * walk[0], 2 * sum(walk[1:]))
 
 
 def _decode_inputs(rng, b, k, g, hd, s, dev, q_dtype, kv_dtype):

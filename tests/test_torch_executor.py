@@ -312,6 +312,28 @@ class TestEngine:
         # the engine pads no depthwise input (flat conv layers use im2col)
         assert calls["pad"] == 0 if flat else calls["pad"] > 0
 
+    @pytest.mark.parametrize("mode,precision", [
+        ("spatial", "int8"), ("kernel", "int8"), ("kernel", "float")])
+    def test_cpu_forwards_walk_the_plan(self, smoke, mode, precision):
+        """On the CPU no CUDA graph is captured: every forward walks the
+        plan, ``graph_stats`` counts only ``eager``, and the answers are
+        the reference's (int8 equal, float within its tolerance)."""
+        rm, tm, rq, tq, xs = smoke
+        rp, tp = _plans(mode, rm, tm, RATINGS)
+        ref = R.CompiledSplitExecutor(rp, rq).run_batch(xs, mode=precision)
+        eng = T.CompiledSplitExecutor(tp, tq, device="cpu")
+        got = [eng.run_batch(xs, mode=precision) for _ in range(2)]
+        got.append(eng.run(xs[0], mode=precision)[None])
+        assert eng.graph_stats() == dict(captures=0, replays=0, eager=3)
+        assert eng._graphs == {}
+        for y, want in zip(got, (ref, ref, ref[:1])):
+            if precision == "int8":
+                np.testing.assert_array_equal(y, want)
+            else:
+                np.testing.assert_allclose(
+                    y, want, rtol=FLOAT_RTOL,
+                    atol=FLOAT_RTOL * np.abs(ref).max())
+
     def test_bad_mode_and_missing_qmodel(self, smoke):
         _, tm, _, _, xs = smoke
         eng = T.CompiledSplitExecutor(T.split_model(tm, RATINGS),

@@ -124,6 +124,24 @@ def test_dispatch_spans_under_the_profiler(session, xs):
     assert d1 <= w0 <= w1 and w_attrs["device_s"] > 0
 
 
+def test_forward_span_says_the_cpu_walks_the_plan(session, xs):
+    """On the CPU the ``executor.forward`` span carries ``graph="eager"``,
+    every block group still has its span, no graph is captured or
+    replayed, and the traced answer is the untraced one."""
+    want = session.dispatch_async(xs).wait()
+    before = session.engine.graph_stats()
+    with torch.profiler.profile(activities=CPU_ONLY):
+        got = session.dispatch_async(xs).wait()
+    assert got.tobytes() == want.tobytes()
+    names = _by_name(trace.spans())
+    (_, _, _, _, attrs), = names["executor.forward"]
+    assert attrs == {"graph": "eager"}
+    assert len(names["executor.block"]) == len(session.split.block_groups)
+    stats = session.engine.graph_stats()
+    assert stats["captures"] == stats["replays"] == 0
+    assert stats["eager"] == before["eager"] + 1
+
+
 def test_dispatch_ids_count_up_per_session(session, xs):
     with torch.profiler.profile(activities=CPU_ONLY):
         ids = [session.dispatch_async(xs[:1]) for _ in range(3)]
