@@ -25,9 +25,8 @@ import numpy as np
 def control_checks(run):
     """The control's numbers compared, for the requests of ``run``."""
     from .harness import judge
-    from .reference.mobilenetv2 import Reference
-    ctrl = Reference(run.cfg["model"], run.weights, run.calibration,
-                     run.device, weight_bits=4)
+    ctrl = run.ref.Reference(run.cfg["model"], run.weights, run.calibration,
+                             run.device, weight_bits=4)
     used = sorted(run.ref_codes)
     codes = dict(zip(used, ctrl(run.pool[used])))
     n_pool = len(run.pool)

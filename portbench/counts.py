@@ -1,11 +1,12 @@
 """Work counts of the model's published shapes, and the card's peaks.
 
-Counted from the layer list of ``portbench/reference`` (Table 2 of
-MobileNetV2), never from the program's launches, so a change of the
-program's implementation leaves this yardstick alone.  Per layer and
-sample: the int8 input read once (and the residual added to it, where
-there is one), the int8 output written once; per call the int8 weights and
-int32 bias read once; operations are 2 x MACs.
+Counted from the layer list of the architecture's reference
+(``portbench/reference/<arch>.py``), never from the program's launches, so
+a change of the program's implementation leaves this yardstick alone.  Per
+layer and sample: each int8 activation element the layer states it reads
+(``elems_read``: its input, and a second tensor such as a residual) read
+once, each it writes (``elems_written``) written once; per call the int8
+weights and int32 bias read once; operations are 2 x MACs.
 """
 from __future__ import annotations
 
@@ -20,9 +21,7 @@ def layer_ops(lyr, batch: int) -> float:
 
 
 def layer_bytes(lyr, batch: int) -> float:
-    n_in = lyr.cin * lyr.in_hw[0] * lyr.in_hw[1]
-    n_out = lyr.cout * lyr.out_hw[0] * lyr.out_hw[1]
-    act = n_in + n_out + (n_out if lyr.residual_from else 0)
+    act = lyr.elems_read + lyr.elems_written
     params = 0
     if lyr.weight_shape is not None:
         w = 1

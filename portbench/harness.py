@@ -5,7 +5,11 @@ Everything a cell needs is found by name under ``<root>/portbench``:
 
 - ``workloads/<cell>.json``: its configuration, traffic kind and
   parameters, trace span, limits, chips and why;
-- ``configs/<config>.json``: the model, input, split, precision;
+- ``configs/<config>.json``: the model (its ``arch``), input, split,
+  precision;
+- ``reference/<arch>.py``: the architecture's plain reference (``layers``,
+  ``Reference``), and ``programs/<arch>.py``: its program side
+  (``program_model``), found by the configuration's ``model.arch``;
 - ``traffic/<kind>.py``: the code of the traffic kind (``setup``,
   ``drive``, ``teardown``);
 - ``endtoend/<metric>.py`` and ``metrics/<metric>.py``: a reader of each
@@ -27,7 +31,6 @@ from pathlib import Path
 import numpy as np
 
 from . import inputs
-from .reference import mobilenetv2 as ref
 from .trace import Tracer
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -74,14 +77,17 @@ class Bench:
 
     def code(self, kind: str, name: str):
         """The module of ``portbench/<kind>/<name>.py`` (names may hold
-        dots), loaded as a member of the ``portbench.<kind>`` package."""
+        dots), loaded as a member of the ``portbench.<kind>`` package and
+        entered in ``sys.modules`` under that name (a dataclass looks its
+        module up there)."""
         path = self.path(kind, name, ".py")
         mod_name = f"portbench.{kind}.{name.replace('.', '__')}"
         spec = importlib.util.spec_from_file_location(mod_name, path)
         if spec is None or not path.is_file():
-            raise FileNotFoundError(path)
+            raise FileNotFoundError(f"no file {path} for {kind} {name!r}")
         module = importlib.util.module_from_spec(spec)
         module.__package__ = f"portbench.{kind}"
+        sys.modules[mod_name] = module
         spec.loader.exec_module(module)
         return module
 
@@ -151,7 +157,9 @@ def judge(ids, outs, ref_codes: dict, attempted: int, limits: dict):
 
 def prepare(workload: str, seed: int, seconds: float, trace: bool,
             device=None, root: Path = ROOT) -> Run:
-    """Everything of a run up to its window: the cell's files, weights and
+    """Everything of a run up to its window: the cell's files, the
+    architecture's reference and program modules (``run.ref``,
+    ``run.program``; a missing one raises before any set-up), weights and
     images from ``seed``, the traffic kind's set-up (the program's session
     or server, calibrated and warm)."""
     import torch
@@ -163,6 +171,9 @@ def prepare(workload: str, seed: int, seconds: float, trace: bool,
             raise ValueError(f"{workload}: {key} {wl[key]!r} in its file, "
                              f"{entry[key]!r} in BENCHMARK.json")
     cfg = bench.data("configs", entry["config"])
+    arch = cfg["model"]["arch"]
+    ref = bench.code("reference", arch)
+    program = bench.code("programs", arch)
     dev = torch.device(device or "cuda")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -171,8 +182,9 @@ def prepare(workload: str, seed: int, seconds: float, trace: bool,
     shape = tuple(model["input"])
     run = Run(bench=bench, workload=workload, kind=bench.code("traffic",
                                                               wl["kind"]),
-              cfg=cfg, params=wl["params"], trace_params=wl["trace"],
-              limits=wl["limits"], device=dev, seconds=seconds, layers=lyrs,
+              ref=ref, program=program, cfg=cfg, params=wl["params"],
+              trace_params=wl["trace"], limits=wl["limits"], device=dev,
+              seconds=seconds, layers=lyrs,
               weights=inputs.weights(lyrs, seed, dev),
               calibration=inputs.calibration(shape, cfg["calibration_images"],
                                              seed, dev),
@@ -211,7 +223,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     ids, outs = win.outputs()
     n_pool = len(run.pool)
     used = sorted({int(i) % n_pool for i in ids})
-    net = ref.Reference(run.cfg["model"], run.weights, run.calibration, dev)
+    net = run.ref.Reference(run.cfg["model"], run.weights, run.calibration,
+                            dev)
     codes = net(run.pool[used]) if used else []
     run.ref_codes = dict(zip(used, codes))
     run.ids, run.outs = ids, outs

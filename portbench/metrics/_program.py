@@ -8,8 +8,13 @@ program without ``repro_torch.trace`` has none, and every reader built on
 this module then returns None.
 
 A dispatch makes one host-to-device copy (its input) and one device-to-host
-copy (its output), in that order on the one stream, and the next dispatch's
-input copy follows its output.
+copy (its output). Since the program replays CUDA graphs, the input is
+uploaded on a stream that holds only uploads, and runs beside the compute
+of the dispatch before; the output is copied on the caller's stream once
+the dispatch's compute is done. So the two copies of a dispatch are not
+found near each other: each kind is paired with the dispatches by its own
+stream's order. On the H100 machine a traced run of either offline cell
+held exactly one copy of each kind a traced dispatch (6 runs).
 
 Putting the device events on the spans' clock. The trace's own mapping
 (``portbench.trace``) can drift against the host's clock within one trace:
@@ -20,42 +25,48 @@ another in one process its rate changed within the trace. So the device
 events are put on the spans' clock by one straight line, fitted by least
 squares to the input copies and lowered to the latest line that starts no
 input copy after the end of its ``executor.input`` span: an input copy is
-enqueued at the end of that span, on a device that has long finished the
-dispatch before, and started 5-110 us before the end in 16 traced runs of
-both offline cells that did not drift (on the trace's own mapping), so the
-copy that started nearest its span's end sets the line. Where that line
-fails the clock check below, the line through the input copies piece by
-piece (each copy at its span's end, but a copy that started further before
-it than the lines through its neighbours say) is taken if it passes better:
-it follows a changing rate, at the cost of each copy's own lead. A copy
-that starts within ``BUSY_GAP_S`` of other device work may have waited in
-the stream and is left out (in those runs the device had been idle 75 us or
-more before every copy). The copies are found dispatch by dispatch, in
-order, within ``MATCH_S`` of where the copy before puts them, the first
-where the trace's own mapping or the trace's first copy puts it, whichever
-finds more: in those runs the distance of a copy to its span moved by at
-most 0.08 ms from one dispatch to the next, a drift of 2% would move it 1
-ms between dispatches 50 ms apart, and two dispatches' copies lay 9 ms or
-more apart. So a copy the profiler lost leaves its dispatch unmatched and
-an extra copy is passed over; ``MATCHED_MIN`` is chosen, not measured (the
-profiler has lost events in traces made one after another in one process).
+enqueued inside that span, so the copy that started nearest its span's end
+sets the line (before the graphs it started 5-110 us before that end in 16
+traced runs of both offline cells that did not drift; since, 62-271 us in
+4 runs, on the trace's own mapping). Where that line fails the clock check
+below, the line through the input copies piece by piece (each copy at its
+span's end, but a copy that started further before it than the lines
+through its neighbours say) is taken if it passes better: it follows a
+changing rate, at the cost of each copy's own lead. A copy that starts
+within ``BUSY_GAP_S`` after the device fell idle may have waited behind
+that work and is left out of the fit (``_ran_free``); one that starts
+while other work runs ran beside it, on the uploads' own stream.
 
-The clock check, on what the fits do not use. An output copy (the first
-device-to-host copy after its dispatch's input copy) is enqueued inside its
-``session.output`` span and read back inside ``session.wait``: it cannot
-start before ``session.output`` starts, nor end after ``session.wait``
-ends, and it starts before ``session.output`` ends unless it waited behind
-device work (on the trace's own mapping it started 8-84 us before that end
-in 16 runs that did not drift). The worst violation over the matched
+Pairing. The input copies are taken in the order they started, one a
+dispatch in the dispatches' order: each within ``MATCH_S``, and within half
+the distance to the neighbouring dispatches' span ends, of where the copy
+before puts it (the first where the trace's own mapping or the trace's
+first copy puts it, whichever finds more). Before the graphs the distance
+of a copy to its span moved by at most 0.08 ms from one dispatch to the
+next; since, dispatches lie some 1.4 ms apart. So a copy the profiler lost
+leaves its dispatch unmatched and an extra copy is passed over. An output
+copy starts when the device reaches it, behind the dispatch's compute, so
+its time says nothing of its dispatch: the output copies are taken in the
+order they started, each the first that starts after its dispatch's
+``session.output`` starts (less ``MATCH_S`` for the clock's error).
+``MATCHED_MIN`` is chosen, not measured (the profiler has lost events in
+traces made one after another in one process).
+
+The clock check, on what the fits do not use. An output copy is enqueued
+inside its ``session.output`` span and read back inside ``session.wait``:
+it cannot start before ``session.output`` starts, nor end after
+``session.wait`` ends, and it starts before ``session.output`` ends unless
+it waited behind device work. The worst violation over the matched
 dispatches is the clock's lag: on the lowered line, 0-4.6 us in 42 traced
-runs in fresh processes. In 16 traces made two by two in one process, the
-line missed by up to 9.0 ms where the drift's rate changed, the piecewise
-line by 0-50 us, but in one trace whose input copies all started some 0.19
-ms before their spans' ends, by 0.15 ms. Readers that intersect program
-spans with device events read nothing unless the trace is aligned, the
-copies of at least ``MATCHED_MIN`` of the dispatches are found and the lag
-of the mapped events is at most ``LAG_MAX_S``. The lag of the trace's own
-mapping, over both copies, is noted beside it.
+runs in fresh processes before the graphs, 5-63 us in 4 since. In 16
+traces made two by two in one process, the line missed by up to 9.0 ms
+where the drift's rate changed, the piecewise line by 0-50 us, but in one
+trace whose input copies all started some 0.19 ms before their spans' ends,
+by 0.15 ms. Readers that intersect program spans with device events read
+nothing unless the trace is aligned, the copies of at least
+``MATCHED_MIN`` of the dispatches are found and the lag of the mapped
+events is at most ``LAG_MAX_S``. The lag of the trace's own mapping, over
+both copies, is noted beside it.
 
 The first reader of a run appends one note on the spans (how many, the
 copies, the mapping, both lags, the line's rate) and one of the median host
@@ -63,7 +74,6 @@ time of each block group.
 """
 from __future__ import annotations
 
-import bisect
 import json
 import statistics
 
@@ -119,16 +129,14 @@ class Traced:
         if htod and self.dispatches:
             first = self.by_dispatch[self.dispatches[0]]["executor.input"]
             guesses.append(first[0][1] - htod[0][0])
-        self.copies = max((self._match(htod, dtoh, g) for g in guesses),
-                          key=len)
-        self.matched = [d for d in self.dispatches if d in self.copies]
+        inputs = max((self._match_inputs(htod, g) for g in guesses), key=len)
         fit = [(c[0], self.by_dispatch[d]["executor.input"][0][1] - c[0])
-               for d, (c, _) in self.copies.items() if c[2] >= BUSY_GAP_S]
+               for d, c in inputs.items() if _ran_free(c[2])]
         xs = np.array([x for x, _ in fit])
         ys = np.array([y for _, y in fit])
         x0 = xs[0] if fit else 0.0
         rate, offset = 0.0, (ys[0] if fit else 0.0)
-        if len(fit) >= 2:
+        if len(np.unique(xs)) >= 2:
             rate, offset = np.polyfit(xs - x0, ys, 1)
         # down to the latest line that starts no input copy after its span
         offset -= max(offset + rate * (xs - x0) - ys, default=0.0)
@@ -155,55 +163,92 @@ class Traced:
             return ys_pw[k] + (ys_pw[k + 1] - ys_pw[k]) * (t - xs[k]) / (
                 xs[k + 1] - xs[k])
 
-        shift, self.mapping = line, "line"
-        self.lag_s = self._lag(line, inputs=False)
+        def paired(shift):
+            outputs = self._match_outputs(dtoh, shift)
+            return {d: (c, outputs[d]) for d, c in inputs.items()
+                    if d in outputs}
+
+        shift, self.mapping, self.copies = line, "line", paired(line)
+        self.lag_s = self._lag(self.copies, line, inputs=False)
         if len(fit) >= 2 and (self.lag_s is None or self.lag_s > LAG_MAX_S):
-            lag = self._lag(through, inputs=False)
+            copies = paired(through)
+            lag = self._lag(copies, through, inputs=False)
             if lag is not None and (self.lag_s is None or lag < self.lag_s):
-                shift, self.mapping, self.lag_s = through, "piecewise", lag
+                shift, self.mapping, self.lag_s, self.copies = (
+                    through, "piecewise", lag, copies)
         s0 = np.array([ev[1] for ev in raw])
         s1 = np.array([ev[2] for ev in raw])
         self.events = list(zip((ev[0] for ev in raw),
                                (s0 + shift(s0)).tolist(),
                                (s1 + shift(s1)).tolist())) if raw else []
-        self.raw_lag_s = self._lag(lambda t: 0.0, inputs=True)
+        self.raw_lag_s = self._lag(self.copies, lambda t: 0.0, inputs=True)
 
-    def _match(self, htod, dtoh, shift: float) -> dict:
-        """dispatch id -> (input copy, output copy) of each traced dispatch
-        whose copies are found, the first looked for ``shift`` before its
-        span's end."""
-        starts = [c[0] for c in htod]
-        out_starts = [c[0] for c in dtoh]
+    @property
+    def matched(self) -> list:
+        """The traced dispatches whose input and output copies were found,
+        in order."""
+        return [d for d in self.dispatches if d in self.copies]
+
+    def _match_inputs(self, htod, shift: float) -> dict:
+        """dispatch id -> input copy of each traced dispatch whose copy is
+        found: the copies in the order they started, one a dispatch in the
+        dispatches' order, the first looked for ``shift`` before its
+        ``executor.input`` span's end and each later one where the one
+        before puts it.  A copy further than ``MATCH_S``, or than half the
+        distance to the next or the previous dispatch's span end, from
+        where it is looked for is not this dispatch's: one too early is
+        passed over, one too late left to the dispatches after."""
+        ends = [self.by_dispatch[d]["executor.input"][0][1]
+                for d in self.dispatches]
         found = {}
-        for did in self.dispatches:
-            t_end = self.by_dispatch[did]["executor.input"][0][1]
-            want = t_end - shift
-            j = bisect.bisect_left(starts, want)
-            near = [i for i in (j - 1, j) if 0 <= i < len(starts)]
-            if not near:
-                continue
-            i = min(near, key=lambda i: abs(starts[i] - want))
-            if abs(starts[i] - want) > MATCH_S:
-                continue
-            if htod[i][2] >= BUSY_GAP_S:
-                shift = t_end - starts[i]
-            k = bisect.bisect_left(out_starts, starts[i])
-            nxt = starts[i + 1] if i + 1 < len(starts) else float("inf")
-            if k < len(dtoh) and out_starts[k] < nxt:
-                found[did] = (htod[i], dtoh[k])
+        j = 0
+        for n, did in enumerate(self.dispatches):
+            apart = [abs(ends[m] - ends[n]) for m in (n - 1, n + 1)
+                     if 0 <= m < len(ends)]
+            near = min([MATCH_S] + [0.5 * a for a in apart])
+            want = ends[n] - shift
+            while j < len(htod) and htod[j][0] < want - near:
+                j += 1
+            if j < len(htod) and htod[j][0] <= want + near:
+                found[did] = htod[j]
+                if _ran_free(htod[j][2]):
+                    shift = ends[n] - htod[j][0]
+                j += 1
         return found
 
-    def _lag(self, shift, inputs: bool) -> float | None:
-        """The worst violation of the copies' bounds (0 where none) with
-        the device times moved by ``shift(t)``; with ``inputs``, the input
-        copies' bounds too (start inside ``executor.input`` unless it
-        waited)."""
+    def _match_outputs(self, dtoh, shift) -> dict:
+        """dispatch id -> output copy of each traced dispatch that has its
+        ``session.output`` span, the device times moved by ``shift(t)``:
+        the copies in the order they started, one a dispatch in the
+        dispatches' order, each the first that starts after its
+        ``session.output`` starts, less ``MATCH_S`` for the clock's error.
+        When an output copy starts is the device's to say, behind the
+        dispatch's compute, so the order of the one stream pairs them."""
+        found = {}
+        k = 0
+        for did in self.dispatches:
+            sp = self.by_dispatch[did]
+            if "session.output" not in sp:
+                continue
+            o0 = sp["session.output"][0][0]
+            while k < len(dtoh) and dtoh[k][0] + shift(dtoh[k][0]) < (
+                    o0 - MATCH_S):
+                k += 1
+            if k < len(dtoh):
+                found[did] = dtoh[k]
+                k += 1
+        return found
+
+    def _lag(self, copies: dict, shift, inputs: bool) -> float | None:
+        """The worst violation of the bounds of ``copies`` (dispatch id ->
+        input and output copy; 0 where none) with the device times moved by
+        ``shift(t)``; with ``inputs``, the input copies' bounds too (start
+        inside ``executor.input`` unless it waited)."""
         worst = None
-        for did in self.matched:
+        for did, ((cs, _, c_idle), (ds, de, d_idle)) in copies.items():
             sp = self.by_dispatch[did]
             if "session.output" not in sp or "session.wait" not in sp:
                 continue
-            (cs, _, c_idle), (ds, de, d_idle) = self.copies[did]
             o0, o1, _ = sp["session.output"][0]
             ds, de = ds + shift(ds), de + shift(de)
             v = [o0 - ds, de - sp["session.wait"][0][1], 0.0]
@@ -276,6 +321,16 @@ class Traced:
             rows.append([a["first"], a["last"], a["mode"], a["kind"],
                          round(us, 1)])
         return rows
+
+
+def _ran_free(idle: float) -> bool:
+    """Whether a copy with ``idle`` seconds of an idle device before it
+    started as it was enqueued rather than queued behind other work: the
+    device had been idle ``BUSY_GAP_S`` or more, or other work was still
+    running when it started (a copy beside running work is on a stream of
+    its own, which held nothing before it: the uploads' stream holds only
+    uploads, each done long before the next)."""
+    return idle >= BUSY_GAP_S or idle < 0
 
 
 def _at(xs, ys, i, j, k) -> float:

@@ -68,6 +68,18 @@ class Layer:
             return self.cin * self.cout
         return self.cin * self.in_hw[0] * self.in_hw[1]
 
+    @property
+    def elems_read(self) -> int:
+        """Activation elements read a sample: the input, and the kept
+        output added to this one where there is one."""
+        n_in = self.cin * self.in_hw[0] * self.in_hw[1]
+        return n_in + (self.elems_written if self.residual_from else 0)
+
+    @property
+    def elems_written(self) -> int:
+        """Activation elements written a sample: the output."""
+        return self.cout * self.out_hw[0] * self.out_hw[1]
+
 
 def _conv_hw(hw, k, s, p):
     return tuple((d + 2 * p - k) // s + 1 for d in hw)

@@ -2,65 +2,26 @@
 (``repro_torch``), built from a configuration and the benchmark's float
 weights and calibration images.
 
-The program's own ``mobilenet_v2`` builds the layer list; its weights are
-then replaced by the benchmark's, after every layer's structure has been
-held against the published architecture of ``portbench/reference``.  The
-split is fixed by the configuration (``split_model(model, ratings,
-mode=...)``), so no planner search runs in set-up.  The program calibrates
-and quantizes on its own, from the calibration images.
+The run's architecture module (``portbench/programs/<arch>.py``, held on
+``run.program``) builds the program's model with the program's own code
+and the benchmark's weights, held against the reference's layer list
+(``run.layers``).  The split is fixed by the configuration
+(``split_model(model, ratings, mode=...)``), so no planner search runs in
+set-up.  The program calibrates and quantizes on its own, from the
+calibration images.
 """
 from __future__ import annotations
 
-import itertools
 
-from .reference import mobilenetv2 as ref
-
-
-def _structure(lyr) -> tuple:
-    """A published layer as the program's ``LayerSpec`` states it."""
-    if lyr.kind == "linear":
-        in_shape, out_shape = (lyr.cin, 1, 1), (lyr.cout, 1, 1)
-    else:
-        in_shape = (lyr.cin, *lyr.in_hw)
-        out_shape = (lyr.cout, *lyr.out_hw)
-    spatial = lyr.kind in ("conv", "dwconv")
-    return (lyr.name, lyr.kind, in_shape, out_shape,
-            (lyr.stride,) * 2 if spatial else (1, 1),
-            (lyr.padding,) * 2 if spatial else (0, 0),
-            (lyr.kernel,) * 2 if spatial else (1, 1),
-            lyr.activation, lyr.save_as, lyr.residual_from)
-
-
-def program_model(model_cfg: dict, weights: dict):
-    """The program's ``ReinterpretedModel`` of ``model_cfg`` carrying
-    ``weights``.  Raises if any layer differs from the published one."""
-    from repro_torch.models.mobilenetv2 import mobilenet_v2
-    _, h, w = model_cfg["input"]
-    model = mobilenet_v2(input_hw=(h, w), num_classes=model_cfg["num_classes"],
-                         cfg=[tuple(r) for r in model_cfg["inverted_residual"]])
-    published = ref.layers(model_cfg)
-    got = [(s.name, s.kind, tuple(s.in_shape), tuple(s.out_shape),
-            tuple(s.stride), tuple(s.padding), tuple(s.kernel), s.activation,
-            s.save_as, s.residual_from) for s in model.layers]
-    want = [_structure(lyr) for lyr in published]
-    for i, (a, b) in enumerate(itertools.zip_longest(got, want)):
-        if a != b:
-            raise RuntimeError(f"the program's MobileNetV2 differs from the "
-                               f"published one at layer {i}: {a} != {b}")
-    for spec in model.layers:
-        if spec.weight is not None:
-            spec.weight, spec.bias = weights[spec.name]
-    return model
-
-
-def session(cfg: dict, weights: dict, calibration, device, max_batch: int):
-    """An int8 ``Session`` of the configuration's split, calibrated by the
-    program on ``calibration``."""
+def session(run, max_batch: int):
+    """An int8 ``Session`` of the run's configuration and split, calibrated
+    by the program on the run's calibration images."""
     from repro_torch.api import Session
     from repro_torch.core import split_model
-    model = program_model(cfg["model"], weights)
+    cfg = run.cfg
+    model = run.program.program_model(cfg["model"], run.weights, run.layers)
     split = cfg["split"]
     plan = split_model(model, split["ratings"], mode=split["mode"])
     return Session(plan, precision=cfg["precision"],
-                   calibration=list(calibration), device=device,
+                   calibration=list(run.calibration), device=run.device,
                    max_batch=max_batch)

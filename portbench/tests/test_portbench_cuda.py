@@ -7,7 +7,7 @@ import json
 
 import pytest
 
-from conftest import ROOT
+from .tiny_bench import ROOT
 
 from portbench.harness import Bench, run_cell
 

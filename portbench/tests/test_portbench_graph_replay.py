@@ -13,7 +13,7 @@ from portbench.harness import Bench, Run
 from portbench.trace import Tracer
 from portbench.window import Window
 
-from conftest import ROOT
+from .tiny_bench import ROOT
 
 T0 = 10.0
 MS = 1e-3

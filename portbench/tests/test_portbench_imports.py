@@ -8,7 +8,7 @@ import types
 
 import pytest
 
-from conftest import ROOT, add_tiny
+from .tiny_bench import ROOT, copy_bench
 
 from portbench import harness
 
@@ -24,11 +24,7 @@ def test_forbidden_compares_the_whole_top_level_name(monkeypatch):
 
 
 def test_a_run_loads_no_jax_nor_the_jax_package(tmp_path):
-    import shutil
-    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
-    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    add_tiny(tmp_path)
+    copy_bench(tmp_path)
     code = (
         "import sys; sys.path[:0] = [%r, %r]\n"
         "from pathlib import Path\n"

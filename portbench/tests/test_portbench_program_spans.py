@@ -19,7 +19,7 @@ from portbench.metrics._program import traced
 from portbench.trace import Tracer
 from portbench.window import Window
 
-from conftest import ROOT
+from .tiny_bench import ROOT
 
 T0 = 10.0
 MS = 1e-3
@@ -325,3 +325,64 @@ def test_fulfill_and_service_read_the_servers_batches():
     program_trace.clear()
     assert read("serve.fulfill_ms", _run()) is None
     assert read("serve.service_ms", _run()) is None
+
+
+PERIOD = 1.5 * MS       # a batch of the graph case, host and device alike
+
+
+def _graph_run(n=8, drift=0.0):
+    """``n`` dispatches of the graph case, ``PERIOD`` apart: dispatch k's
+    upload (its own stream) starts 20 us before its input span ends, while
+    dispatch k-1's last kernel still runs; its four kernels follow the
+    output copy of k-1, which lands before k's output span starts; its
+    output copy starts after its compute and is waited for once k+1 is
+    enqueued.  The device clock's mapping runs ``drift`` slow."""
+    starts = [T0 + 10 * MS + k * PERIOD for k in range(n)]
+    evs = []
+    for did, t in enumerate(starts):
+        _span("session.dispatch", did, t, t + 0.9 * MS, {"n": 8, "bucket": 8})
+        _span("executor.input", did, t, t + 0.3 * MS)
+        _span("executor.forward", did, t + 0.3 * MS, t + 0.8 * MS,
+              {"graph": "replay"})
+        _span("session.output", did, t + 0.8 * MS, t + 0.9 * MS)
+        w0 = t + PERIOD + 0.9 * MS
+        _span("session.wait", did, w0, w0 + 0.02 * MS, {"device_s": 1})
+        evs.append(("Memcpy HtoD (Pinned -> Device)", t + 0.28 * MS,
+                    t + 0.33 * MS))
+        edges = np.linspace(0.44, 1.9, 5) * MS
+        evs += [("qgemm_kernel<64>", t + a, t + b)
+                for a, b in zip(edges[:-1], edges[1:])]
+        evs.append(("Memcpy DtoH (Device -> Pinned)", t + 1.9 * MS,
+                    t + 1.92 * MS))
+    tracer = Tracer(True, "cpu")
+    tracer.t0, tracer.t1 = T0, starts[-1] + PERIOD + MS
+    tracer.done, tracer.aligned = True, True
+    tracer._events = [(nm, s - drift * (s - T0), e - drift * (e - T0))
+                      for nm, s, e in evs]
+    tracer.dispatches = n
+    return Run(trace=tracer, window=Window(t_start=T0)), evs, starts
+
+
+@pytest.mark.parametrize("drift", [0.0, 0.02])
+def test_uploads_that_overlap_the_dispatch_before_are_paired_by_order(drift):
+    """The graph case: each upload runs beside the previous dispatch's
+    compute, and that dispatch's output copy lands between this one's
+    upload and its output span.  Each dispatch gets its own upload and
+    output copy (the n-th of each), the line is fitted to uploads that ran
+    beside other work, the clock check holds and both idle shares read as
+    a brute-force count over the events put back on the spans' clock."""
+    run, evs, starts = _graph_run(drift=drift)
+    p = traced(run)
+    assert len(p.matched) == 8 and p.lag_s == pytest.approx(0.0, abs=1e-9)
+    for did, t in enumerate(starts):
+        htod, dtoh = p.copies[did]
+        assert htod[0] == pytest.approx(t + 0.28 * MS - drift * (
+            t + 0.28 * MS - T0))
+        assert dtoh[0] == pytest.approx(t + 1.9 * MS - drift * (
+            t + 1.9 * MS - T0))
+    shifted = [(nm, s + 0.02 * MS, e + 0.02 * MS) for nm, s, e in evs]
+    in_fwd, outside = _brute_idle_shares(run, shifted)
+    assert read("device.idle_in_forward_share.offline", run) == \
+        pytest.approx(in_fwd, abs=0.01)
+    assert read("device.idle_outside_program_share.offline", run) == \
+        pytest.approx(outside, abs=0.01)

@@ -9,12 +9,13 @@ import sys
 import numpy as np
 import pytest
 
-from conftest import ROOT, TINY_MODEL
+from .tiny_bench import ROOT, TINY_MODEL
 
 from portbench import inputs, system
 from portbench.control import control_checks
-from portbench.harness import run_cell
-from portbench.reference import mobilenetv2 as ref
+from portbench.harness import Run, run_cell
+from portbench.programs import mobilenet_v2 as program
+from portbench.reference import mobilenet_v2 as ref
 
 SEED = 2 ** 31 + 5
 RATINGS = [1.0, 0.6, 1.4]
@@ -39,7 +40,8 @@ def test_reference_equals_port_session_given_its_scales(mode):
     weights, cal, xs = _tiny()
     net = ref.Reference(TINY_MODEL, weights, cal, "cpu")
     scales = [net.input_scale] + [q.out_scale for q in net.qlayers]
-    model = system.program_model(TINY_MODEL, weights)
+    model = program.program_model(TINY_MODEL, weights,
+                                  ref.layers(TINY_MODEL))
     sess = Session(split_model(model, RATINGS, mode=mode), device="cpu",
                    qmodel=quantize_model(model, scales), max_batch=4)
     got = sess.submit_many(xs).reshape(len(xs), -1).astype(np.int16)
@@ -50,9 +52,11 @@ def test_reference_equals_port_session_calibrating_apart():
     """Each side calibrating on its own (the benchmark's comparison): at
     this size the answers agree code for code."""
     weights, cal, xs = _tiny()
-    sess = system.session({"model": TINY_MODEL, "precision": "int8",
-                           "split": {"mode": "spatial", "ratings": RATINGS}},
-                          weights, cal, "cpu", max_batch=4)
+    cfg = {"model": TINY_MODEL, "precision": "int8",
+           "split": {"mode": "spatial", "ratings": RATINGS}}
+    run = Run(cfg=cfg, weights=weights, calibration=cal, device="cpu",
+              program=program, layers=ref.layers(TINY_MODEL))
+    sess = system.session(run, max_batch=4)
     got = sess.submit_many(xs).reshape(len(xs), -1).astype(np.int16)
     np.testing.assert_array_equal(
         got, ref.Reference(TINY_MODEL, weights, cal, "cpu")(xs))
@@ -62,7 +66,7 @@ def test_program_model_is_held_to_the_published_layers():
     weights, _, _ = _tiny()
     wrong = dict(TINY_MODEL, last_channels=640)
     with pytest.raises(RuntimeError, match="differs from the published"):
-        system.program_model(wrong, weights)
+        program.program_model(wrong, weights, ref.layers(wrong))
 
 
 def test_reference_imports_nothing_of_the_program():
@@ -78,7 +82,7 @@ def test_reference_imports_nothing_of_the_program():
                 assert m.split(".")[0] in ("numpy", "torch", "dataclasses",
                                            "__future__"), (path, m)
     code = ("import sys; sys.path.insert(0, %r); "
-            "from portbench.reference import mobilenetv2 as r; "
+            "from portbench.reference import mobilenet_v2 as r; "
             "from portbench import inputs; "
             "m = %r; ls = r.layers(m); w = inputs.weights(ls, 3, 'cpu'); "
             "c = inputs.calibration(tuple(m['input']), 2, 3, 'cpu'); "
@@ -89,10 +93,12 @@ def test_reference_imports_nothing_of_the_program():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300)
 
 
-def test_control_comes_out_not_correct(tiny_root):
-    """The control (the reference with int4 weights in the program's
-    place) fails the comparison that the program passes."""
-    result, run = run_cell("tiny.offline", SEED, 0.5, False, device="cpu",
+@pytest.mark.parametrize("cell", ["tiny.offline", "toy.offline"])
+def test_control_comes_out_not_correct(tiny_root, cell):
+    """The control (the run's own reference, of its architecture, with int4
+    weights in the program's place) fails the comparison that the program
+    passes."""
+    result, run = run_cell(cell, SEED, 0.5, False, device="cpu",
                            root=tiny_root)
     assert result["correct"]
     checks, ok, _ = control_checks(run)

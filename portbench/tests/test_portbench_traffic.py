@@ -8,7 +8,7 @@ import time
 import numpy as np
 import pytest
 
-from conftest import ROOT
+from .tiny_bench import ROOT
 
 from portbench.harness import Bench
 

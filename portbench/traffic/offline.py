@@ -20,8 +20,7 @@ def setup(run) -> None:
     p = run.params
     if p["pool"] % p["batch"]:
         raise ValueError("pool must be a multiple of batch")
-    run.session = system.session(run.cfg, run.weights, run.calibration,
-                                 run.device, max_batch=p["batch"])
+    run.session = system.session(run, max_batch=p["batch"])
     run.session.warmup(buckets=(p["batch"],))
     run.batch = p["batch"]
 

@@ -34,8 +34,7 @@ DRAIN_S = 60.0       # how long past the window's close an answer may come
 def setup(run) -> None:
     from repro_torch.serve import SLO, Server
     p = run.params
-    run.session = system.session(run.cfg, run.weights, run.calibration,
-                                 run.device, max_batch=p["max_batch"])
+    run.session = system.session(run, max_batch=p["max_batch"])
     run.server = Server(max_inflight=p["max_inflight"])
     run.server.add_tenant(TENANT, run.session, warmup=True,
                           slo=SLO(p99_target_s=p["slo_p99_s"],

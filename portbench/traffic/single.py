@@ -16,8 +16,7 @@ from ..window import Window
 
 
 def setup(run) -> None:
-    run.session = system.session(run.cfg, run.weights, run.calibration,
-                                 run.device, max_batch=1)
+    run.session = system.session(run, max_batch=1)
     run.session.warmup(buckets=(1,))
     run.batch = 1
 
