@@ -9,7 +9,9 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
 2. lists every kernel launch that one forward of each main-path plan makes
    (``path_launches``: one ``dwconv3x3`` launch over all worker shards of
    each flat depthwise layer, one ``dwconv3x3_bands`` launch over all bands
-   of each spatial depthwise stage, both on unpadded input), holds each
+   of each spatial depthwise stage, both on unpadded input, and the same
+   of the 5x5 forms; one ``qgemm`` over all shards of a linear layer; one
+   ``se_pool`` a global pool, one ``se_gate`` a gate), holds each
    kernel against its plain torch version on the card at every distinct
    shape of those launches, in the form the engine calls it (int8 output
    bit-exact, float32 output within the tolerance below), and times kernel
@@ -30,7 +32,14 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
    replay (``graphs``: ``graph_stats()``), and no weight to be copied into
    the kernel's layout (``qgemm.weight_copies`` 0);
 4. does the same with a kernel-mode and a neuron-mode plan (the flat
-   depthwise and im2col paths);
+   depthwise and im2col paths), then serves EfficientNet-B0 at 224x224
+   (``effnet_phase``) through its spatial, kernel and neuron plans at
+   batch EFF_BATCH, each equal bit for bit to the unsplit int8 walk on the
+   card (its swish and sigmoid take the card's expf, which the CPU's exp
+   may miss by a code), each trace showing the ``se_pool``, ``se_gate``,
+   ``dwconv5x5`` and other kernels its plan lists; their launch shapes join
+   step 2, where the swish and sigmoid epilogues are held too (int8
+   within one code on EXP_CODE_SHARE of the codes);
 5. serves the float model on the card, allclose to the CPU;
 6. the planner stack and the distributed runtime:
    (a) ``Planner`` on ``Cluster.heterogeneous_demo(8)`` must reproduce
@@ -171,7 +180,8 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
    qwen3-14b's bf16 training on a (world // 2, 2) mesh of one NCCL rank a
    card;
 12. prints a JSON line of every kernel: its launches in the counted runs
-   (the three engine plans and the in-process distributed run; for
+   (the three engine plans of each network and the in-process distributed
+   run; for
    ``decode_attn`` the dense LM run, each family's and the mesh serve's),
    its largest error
    against its plain version, and the sums over those launches of its
@@ -179,7 +189,8 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
    shape; a CNN kernel also carries its launches in the serving run's
    traced part (``serving_launches``).  An engine plan's launches by
    wrapper are the plan's list, held against the trace's kernels by name:
-   ``dwconv3x3`` and ``dwconv3x3_bands`` launch the same kernel;
+   ``dwconv3x3`` and ``dwconv3x3_bands`` launch the same kernel, as do the
+   two 5x5 forms;
 13. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero, as does a machine without CUDA or a
@@ -203,6 +214,17 @@ PEAK_BYTES_S = 3.35e12
 PEAK_INT8_OPS_S = 1979e12
 BATCH = 8
 RATINGS = [1.0, 0.8, 1.2, 0.6, 1.4, 0.9, 1.1, 0.7]
+# EfficientNet-B0 at 224x224 is served at the benchmark cell's batch
+EFF_BATCH = 32
+# the CNN kernels' wrappers, each holding its launch counter
+CNN_WRAPPERS = ("qgemm", "dwconv3x3_bands", "dwconv3x3",
+                "dwconv5x5_bands_unpadded", "dwconv5x5_shards", "se_pool",
+                "se_gate")
+# swish and sigmoid epilogues against their plain versions on the card:
+# int8 within one code on at most this share of the codes (one code at the
+# least), the kernel's expf against torch's exp; float32 as the clamps
+EXP_ACTS = ("swish", "sigmoid")
+EXP_CODE_SHARE = 1e-4
 # float32 kernel output repeats the plain version's rounded multiply and add
 # exactly; the tolerance only admits a last-bit difference
 F32_RTOL, F32_ATOL = 1e-6, 1e-6
@@ -272,12 +294,26 @@ def trace_calls(fn, n: int, pad: bool = False):
 
 
 # the engine's kernels by their names on the card (``dwconv3x3`` and
-# ``dwconv3x3_bands`` launch the same kernel)
-ENGINE_KERNELS = {"qgemm": "qgemm_kernel", "dwconv": "dwconv3x3_kernel"}
+# ``dwconv3x3_bands`` launch the same kernel, as do the two 5x5 forms)
+ENGINE_KERNELS = {"qgemm": "qgemm_kernel", "dwconv": "dwconv3x3_kernel",
+                  "dwconv5x5": "dwconv5x5_kernel",
+                  "se_pool": "se_pool_kernel", "se_gate": "se_gate_kernel"}
 
 
 def engine_kind(wrapper: str) -> str:
-    return "qgemm" if wrapper == "qgemm" else "dwconv"
+    if wrapper.startswith("dwconv3x3"):
+        return "dwconv"
+    if wrapper.startswith("dwconv5x5"):
+        return "dwconv5x5"
+    return wrapper
+
+
+def dw_wrapper(layer, bands: bool) -> str:
+    """The wrapper a depthwise layer launches: by its kernel size, over a
+    band stack or over a flat layer's shards."""
+    if layer.kernel[0] == 5:
+        return "dwconv5x5_bands_unpadded" if bands else "dwconv5x5_shards"
+    return "dwconv3x3_bands" if bands else "dwconv3x3"
 
 
 def traced_kernels(fn):
@@ -305,41 +341,69 @@ def path_launches(engine, batch: int) -> list[tuple[str, str, tuple]]:
     ``CompiledSplitExecutor._forward``.  A qgemm shape is (M, K, N); a band
     stack's (windows, C, R, W, stride), width unpadded; a flat depthwise
     layer's (batch, C, H, W, stride, shards), input unpadded, with each
-    worker shard's (c_lo, c_hi, start, stop): one launch over all of them.
-    Each main-path run holds the count of these against the wrappers'
-    launch counters."""
+    worker shard's (c_lo, c_hi, start, stop): one launch over all of them;
+    a pool's (windows, C, R, W, rows), rows a band owns (one band of all
+    H rows a sample where the layer is flat); a gate's (windows, C, R, W,
+    batch).  A linear layer is one launch over all of its shards' columns.
+    Each main-path run holds the count of these against the kernels of a
+    profiler trace of it."""
     from repro_torch.core.executor import _kernel_eligible_dwconv
     plan = engine.plan
     model = plan.model
     out = []
+
+    def fc(layer):
+        out.append(("qgemm", layer.name, (batch, math.prod(layer.in_shape),
+                                          layer.out_shape[0])))
+
     for idxs in plan.block_groups:
         if plan.splits[idxs[0]].mode == "spatial":
-            # one launch per stage over every band of every sample
+            # one launch per stage over every band of every sample; a
+            # squeeze-and-excitation cut after the depthwise stage
             bb = engine._banded_block(idxs)
+            cut = engine._se_cuts.get(tuple(idxs))
             n_win = batch * len(bb.bands)
             for st in bb.stages:
                 layer = model.layers[st.index]
                 c_in, _, w_in = layer.in_shape
                 wp = w_in + 2 * layer.padding[1]
                 r = int(st.src_rows.shape[1])
+                (kh, kw), (sh, sw) = layer.kernel, layer.stride
                 if _kernel_eligible_dwconv(layer):
                     # the kernel pads the width itself
-                    out.append(("dwconv3x3_bands", layer.name,
-                                (n_win, c_in, r, w_in, layer.stride[0])))
+                    out.append((dw_wrapper(layer, True), layer.name,
+                                (n_win, c_in, r, w_in, sh)))
                 elif layer.kind == "conv":
-                    (kh, kw), (sh, sw) = layer.kernel, layer.stride
                     m = n_win * ((r - kh) // sh + 1) * ((wp - kw) // sw + 1)
                     out.append(("qgemm", layer.name,
                                 (m, c_in * kh * kw, layer.out_shape[0])))
+                if cut is not None and st.index == cut.dw:
+                    c, r_o, w_o = layer.out_shape[0], (r - kh) // sh + 1, \
+                        layer.out_shape[2]
+                    geo = engine._band_geometry[cut.dw]
+                    rows = tuple(geo[w].n_rows if geo[w] is not None else 0
+                                 for w in bb.bands)
+                    out.append(("se_pool", model.layers[cut.pool].name,
+                                (n_win, c, r_o, w_o, rows)))
+                    fc(model.layers[cut.fc1])
+                    fc(model.layers[cut.fc2])
+                    out.append(("se_gate", model.layers[cut.gate].name,
+                                (n_win, c, r_o, w_o, batch)))
             continue
-        # a flat layer: one launch per worker shard (qgemm), or one over
-        # all of them (depthwise)
+        # a flat layer: one launch per worker shard (conv), or one over
+        # all of them
         i = idxs[-1]
-        layer, split = model.layers[i], plan.splits[i]
+        layer = model.layers[i]
         if layer.kind == "linear":
-            k = math.prod(layer.in_shape)
-            out += [("qgemm", layer.name, (batch, k, sh.stop - sh.start))
-                    for sh in split.shards if sh.n_positions]
+            fc(layer)
+            continue
+        if layer.kind == "avgpool":
+            c, h, w = layer.in_shape
+            out.append(("se_pool", layer.name, (batch, c, h, w, (h,))))
+            continue
+        if layer.kind == "gate":
+            c, h, w = layer.out_shape
+            out.append(("se_gate", layer.name, (batch, c, h, w, batch)))
             continue
         c_in, h_in, w_in = layer.in_shape
         geoms = [g for g in engine._geometry[i] if g is not None]
@@ -351,7 +415,7 @@ def path_launches(engine, batch: int) -> list[tuple[str, str, tuple]]:
                     for n in spans]
         elif _kernel_eligible_dwconv(layer):
             shards = tuple((g.c_lo, g.c_hi, g.start, g.stop) for g in geoms)
-            out.append(("dwconv3x3", layer.name,
+            out.append((dw_wrapper(layer, False), layer.name,
                         (batch, c_in, h_in, w_in, layer.stride[0], shards)))
     return out
 
@@ -368,8 +432,19 @@ def bound_ms(n_bytes: float, n_ops: float,
 def _operands(kernel, shape, gen, dev, int_bias):
     """Random int8 operands of one launch, with a multiplier that keeps
     acc*scale near 1 so requantization spans the int8 range; returns the
-    wrapper's positional operands and keyword options."""
+    wrapper's positional operands and keyword options.  A pool's or a
+    gate's operands are its stack (and gate codes) and a factor that
+    spreads the sums or products over the int8 range (no float case)."""
     import torch
+    if kernel.startswith("se_"):
+        nb, c, r, w, last = shape
+        x = torch.randint(-127, 128, (nb, c, r, w), generator=gen,
+                          device=dev, dtype=torch.int8)
+        if kernel == "se_pool":
+            return (x, last, 1.0 / (4.0 * max(1, r * w) ** 0.5)), {}
+        g = torch.randint(0, 128, (last, c), generator=gen, device=dev,
+                          dtype=torch.int8)
+        return (x, g, 1.0 / 127), {}
     if kernel == "qgemm":
         m, k, n = shape
         x = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
@@ -381,11 +456,12 @@ def _operands(kernel, shape, gen, dev, int_bias):
         kw = {}
     else:
         nb, c, r, wp, stride = shape[:5]
+        k = dw_taps(kernel)
         x = torch.randint(-127, 128, (nb, c, r, wp), generator=gen,
                           device=dev, dtype=torch.int8)
-        w = torch.randint(-127, 128, (c, 3, 3), generator=gen, device=dev,
+        w = torch.randint(-127, 128, (c, k, k), generator=gen, device=dev,
                           dtype=torch.int8)
-        n_ch, fan_in = c, 9
+        n_ch, fan_in = c, k * k
         kw = {"stride": stride}
     scale = (torch.rand(n_ch, generator=gen, device=dev) + 0.5) / (
         127.0 * 127.0 * fan_in ** 0.5)
@@ -402,19 +478,31 @@ def _operands(kernel, shape, gen, dev, int_bias):
 def counters():
     """Each kernel's wrapper, which also holds its launch count."""
     from repro_torch.kernels.decode_attn.decode_attn import decode_attn
-    from repro_torch.kernels.dwconv.dwconv import dwconv3x3, dwconv3x3_bands
+    from repro_torch.kernels.dwconv.dwconv import (
+        dwconv3x3, dwconv3x3_bands, dwconv5x5_bands_unpadded,
+        dwconv5x5_shards)
     from repro_torch.kernels.qgemm.qgemm import qgemm
+    from repro_torch.kernels.se import se_gate, se_pool
     return {"qgemm": qgemm, "dwconv3x3_bands": dwconv3x3_bands,
-            "dwconv3x3": dwconv3x3, "decode_attn": decode_attn}
+            "dwconv3x3": dwconv3x3,
+            "dwconv5x5_bands_unpadded": dwconv5x5_bands_unpadded,
+            "dwconv5x5_shards": dwconv5x5_shards, "se_pool": se_pool,
+            "se_gate": se_gate, "decode_attn": decode_attn}
+
+
+def dw_taps(kernel) -> int:
+    """A depthwise wrapper's kernel size."""
+    return 5 if kernel.startswith("dwconv5x5") else 3
 
 
 def dw_pad(kernel, shape) -> tuple[int, int]:
     """Zero rows and columns the depthwise kernel reads around its input at
     a launch shape: a flat layer's SAME border, a band stack's width, none
     for the pre-padded whole-sample yardstick."""
-    if kernel == "dwconv3x3_bands":
-        return (0, 1)
-    return (1, 1) if len(shape) == 6 else (0, 0)
+    p = dw_taps(kernel) // 2
+    if kernel in ("dwconv3x3_bands", "dwconv5x5_bands_unpadded"):
+        return (0, p)
+    return (p, p) if len(shape) == 6 else (0, 0)
 
 
 def launch_fns(kernel, shape):
@@ -426,9 +514,15 @@ def launch_fns(kernel, shape):
     from repro_torch.kernels.dwconv.dwconv import dwconv3x3
     from repro_torch.kernels.qgemm.qgemm import qgemm
     from repro_torch.kernels.qgemm.ref import qgemm_ref
+    from repro_torch.kernels.se import se_gate, se_pool
+    from repro_torch.kernels.se.ref import se_gate_ref, se_pool_ref
     if kernel == "qgemm":
         return qgemm, qgemm_ref
-    if kernel == "dwconv3x3_bands":
+    if kernel == "se_pool":
+        return se_pool, se_pool_ref
+    if kernel == "se_gate":
+        return se_gate, se_gate_ref
+    if kernel in ("dwconv3x3_bands", "dwconv5x5_bands_unpadded"):
         return ops.dwconv_bands_unpadded, ref.dwconv_bands_unpadded_ref
     if len(shape) == 5:
         return dwconv3x3, ref.dwconv3x3_ref
@@ -447,6 +541,13 @@ def _library(kernel, shape, args, kw):
     import torch
     import torch.nn.functional as F
     x, w = args[0], args[1]
+    if kernel == "se_pool":
+        return "torch.sum int32", lambda: x.sum(dim=(2, 3),
+                                                dtype=torch.int32)
+    if kernel == "se_gate":
+        gv = w.repeat_interleave(x.shape[0] // w.shape[0], 0)[:, :, None,
+                                                               None]
+        return "torch.mul int8", lambda: torch.mul(x, gv)
     if kernel == "qgemm":
         m, k = x.shape
         n = w.shape[1]
@@ -468,6 +569,17 @@ def schedule(kernel, shape) -> dict:
     import torch
     from repro_torch.kernels import backend
     n_sm = backend.sm_count(torch.device("cuda", 0))
+    if kernel == "se_pool":
+        from repro_torch.kernels.se.se import pool_c_tile
+        nb, c, _, _, rows = shape
+        bsz = nb // len(rows)
+        c_tile = pool_c_tile(bsz, c, n_sm)
+        return dict(c_tile=c_tile, grid=[bsz * -(-c // c_tile)])
+    if kernel == "se_gate":
+        from repro_torch.kernels.se.se import GATE_CTAS_PER_SM, THREADS
+        n = math.prod(shape[:4])
+        return dict(grid=[min(-(-n // (16 * THREADS)),
+                              GATE_CTAS_PER_SM * n_sm)])
     if kernel == "qgemm":
         from repro_torch.kernels.qgemm.qgemm import BN, qgemm_schedule
         m, k, n = shape
@@ -479,18 +591,33 @@ def schedule(kernel, shape) -> dict:
     spans = ([hi - lo + 1 for lo, hi, _, _ in shape[5]] if len(shape) == 6
              else [c])
     sch = dwconv_schedule(nb, spans, h, w, stride, dw_pad(kernel, shape),
-                          n_sm)
+                          n_sm, k=dw_taps(kernel))
     return dict(rows_tile=sch.rows_tile, c_tile=sch.c_tile, smem=sch.smem,
                 shards=len(spans), grid=[nb, sch.tiles])
 
 
-def check_launch(kernel, shape, gen, dev) -> tuple[dict, tuple]:
+def _exp_codes(what, got, ref) -> float:
+    """int8 codes of a swish or sigmoid epilogue within one code of the
+    plain version on at most EXP_CODE_SHARE of them (one at the least);
+    returns the largest difference."""
+    d = (got.int() - ref.int()).abs()
+    n_off, err = int((d > 0).sum()), float(d.max())
+    if err > 1 or n_off > max(1, EXP_CODE_SHARE * d.numel()):
+        raise AssertionError(f"{what}: {n_off} of {d.numel()} codes off, "
+                             f"by up to {err}")
+    return err
+
+
+def check_launch(kernel, shape, gen, dev, exp_acts: bool = False
+                 ) -> tuple[dict, tuple]:
     """Hold one kernel against its plain version at one launch shape, with
     the int32 bias and int8 output (bit-exact) and with the float bias and
-    float32 output (within F32_RTOL/F32_ATOL); time kernel, plain version
-    and library call with CUDA events.  Returns the record and the int8
-    case's (kernels a launch enqueues, call, operands, options) for the
-    device-time trace."""
+    float32 output (within F32_RTOL/F32_ATOL); with ``exp_acts``, also with
+    the swish and sigmoid epilogues (int8 within one code on EXP_CODE_SHARE
+    of the codes, float32 as before).  A pool or a gate has the int8 case
+    alone, bit-exact.  Times kernel, plain version and library call with
+    CUDA events.  Returns the record and the int8 case's (kernels a launch
+    enqueues, call, operands, options) for the device-time trace."""
     import torch
     fn, plain = launch_fns(kernel, shape)
     args, kw = _operands(kernel, shape, gen, dev, int_bias=True)
@@ -498,21 +625,41 @@ def check_launch(kernel, shape, gen, dev) -> tuple[dict, tuple]:
     err = float((got.int() - ref.int()).abs().max())
     if not torch.equal(got, ref):
         raise AssertionError(f"{kernel} {shape}: differs from plain by {err}")
-    fargs, fkw = _operands(kernel, shape, gen, dev, int_bias=False)
-    fgot, fref = fn(*fargs, **fkw), plain(*fargs, **fkw)
-    ferr = float((fgot - fref).abs().max())
-    if not torch.allclose(fgot, fref, rtol=F32_RTOL, atol=F32_ATOL):
-        raise AssertionError(f"{kernel} {shape} f32: max err {ferr}")
+    ferr = 0.0
+    if not kernel.startswith("se_"):
+        fargs, fkw = _operands(kernel, shape, gen, dev, int_bias=False)
+        fcases = [fkw] + [dict(fkw, activation=a) for a in EXP_ACTS
+                          if exp_acts]
+        for case in fcases:
+            fgot, fref = fn(*fargs, **case), plain(*fargs, **case)
+            ferr = max(ferr, float((fgot - fref).abs().max()))
+            if not torch.allclose(fgot, fref, rtol=F32_RTOL, atol=F32_ATOL):
+                raise AssertionError(f"{kernel} {shape} f32 "
+                                     f"{case['activation']}: max err {ferr}")
+        for act in EXP_ACTS if exp_acts else ():
+            case = dict(kw, activation=act,
+                        out_scale=1.0 / 127 if act == "sigmoid" else 6 / 127)
+            err = max(err, _exp_codes(f"{kernel} {shape} {act}",
+                                      fn(*args, **case), plain(*args, **case)))
     if kernel == "qgemm":
         m, k, n = shape
         n_bytes, n_ops = m * k + k * n + 8 * n + m * n, 2.0 * m * n * k
+    elif kernel == "se_pool":
+        # the stack once (the fill rows below a band's own are read too),
+        # one add a byte, the codes out
+        n_bytes, n_ops = args[0].numel() + got.numel(), float(args[0].numel())
+    elif kernel == "se_gate":
+        # the stack and the gate codes once, a multiply and a requantizing
+        # multiply an element, the stack out
+        n = args[0].numel()
+        n_bytes, n_ops = 2 * n + args[1].numel(), 2.0 * n
     else:
         # the input as the kernel reads it (unpadded but for the padded
         # yardstick) once, taps, scale and bias, every output once
-        c = shape[1]
+        c, taps = shape[1], dw_taps(kernel) ** 2
         n_out = got.numel()
-        n_bytes = args[0].numel() + 9 * c + 8 * c + n_out
-        n_ops = 18.0 * n_out
+        n_bytes = args[0].numel() + taps * c + 8 * c + n_out
+        n_ops = 2.0 * taps * n_out
     lib_name, lib = _library(kernel, shape, args, kw)
     rec = dict(kernel=kernel, shape=list(shape), max_abs_err=max(err, ferr),
                event_ms=time_ms(lambda: fn(*args, **kw), 20),
@@ -525,7 +672,8 @@ def check_launch(kernel, shape, gen, dev) -> tuple[dict, tuple]:
 
 # name prefixes of the kernels in csrc/*.cu: every kernel a wrapper
 # enqueues starts with its wrapper's name
-OUR_KERNELS = ("qgemm_", "dwconv3x3_", "decode_attn_")
+OUR_KERNELS = ("qgemm_", "dwconv3x3_", "dwconv5x5_", "se_pool_",
+               "se_gate_", "decode_attn_")
 
 
 TRACE_CHUNK = 48        # launch shapes one profiler trace holds
@@ -580,11 +728,10 @@ def trace_device_ms(kernel_calls, per_shape: int = 5) -> list[float | None]:
     return out
 
 
-# launches the main path does not make, kept beside the path's own shapes
-# as yardsticks: the classifier unsplit, and b1_dw on one pre-padded sample
-# through the reference's contract (``dwconv3x3``)
-OFF_PATH = [("qgemm", "classifier whole layer", (BATCH, 1280, 1000)),
-            ("dwconv3x3", "b1_dw one sample, all channels",
+# a launch the main path does not make, kept beside the path's own shapes
+# as a yardstick: b1_dw on one pre-padded sample through the reference's
+# contract (``dwconv3x3``)
+OFF_PATH = [("dwconv3x3", "b1_dw one sample, all channels",
              (1, 96, 58, 58, 2))]
 
 
@@ -622,7 +769,9 @@ def kernel_phase(runs: dict, dev) -> list[dict]:
                                               path="none", on_path=False))
     calls = []
     for (kernel, shape), r in recs.items():
-        rec, call = check_launch(kernel, shape, gen, dev)
+        # EfficientNet's launches also take swish and sigmoid epilogues
+        rec, call = check_launch(kernel, shape, gen, dev, exp_acts=any(
+            run.startswith("effnet") for run in r["per_run"]))
         r.update(rec)
         calls.append(call)
     for r, ms in zip(recs.values(), trace_device_ms(calls)):
@@ -656,19 +805,23 @@ def per_run(recs, kernel, run) -> dict:
 
 # -- phases 3-5: the main path ------------------------------------------------
 
-def serve_path(mode, model, qmodel, xs, dev, expect):
-    """Drive one int8 plan on the card; hold it against the port on the CPU.
+def serve_path(mode, model, qmodel, xs, dev, expect, *, label=None,
+               want_ys=None, need=None):
+    """Drive one int8 plan on the card over the batch ``xs``; hold it
+    against the port on the CPU, or against ``want_ys`` where given.
     ``expect`` is the launches per wrapper that ``path_launches`` counted
     for one forward of this plan: the run's trace must show exactly those
     kernels, and no wrapper may launch (the forward replays the graph that
-    the warm-up captured).  Returns the launches of this run (the plan's,
-    by wrapper, so held), the trace's kernels and the ms of a request
-    served alone."""
+    the warm-up captured); each wrapper of ``need`` must be among them.
+    Returns the launches of this run (the plan's, by wrapper, so held),
+    the trace's kernels and the ms of a request served alone, under
+    ``label`` (the mode by default)."""
     from repro_torch.api import Session
     from repro_torch.core import split_model
+    label = label or mode
     plan = split_model(model, RATINGS, mode=mode)
     sess = Session(plan, precision="int8", qmodel=qmodel, device=dev,
-                   max_batch=BATCH)
+                   max_batch=len(xs))
     sess.warmup()
     wrappers = counters()
     for fn in wrappers.values():
@@ -682,47 +835,98 @@ def serve_path(mode, model, qmodel, xs, dev, expect):
     walked = {name: fn.launches for name, fn in wrappers.items()
               if fn.launches}
     if walked:
-        raise AssertionError(f"{mode} path walked the plan: {walked}")
+        raise AssertionError(f"{label} path walked the plan: {walked}")
     if wrappers["qgemm"].weight_copies:
-        raise AssertionError(f"{mode} path copied "
+        raise AssertionError(f"{label} path copied "
                              f"{wrappers['qgemm'].weight_copies} weights")
     if kernels != want:
-        raise AssertionError(f"{mode} path ran {kernels} kernels in each of "
-                             f"{tries} traces, its plan counts {want}")
-    for name in ("qgemm", "dwconv3x3" if mode != "spatial" else
-                 "dwconv3x3_bands"):
+        raise AssertionError(f"{label} path ran {kernels} kernels in each "
+                             f"of {tries} traces, its plan counts {want}")
+    for name in need or ("qgemm", "dwconv3x3" if mode != "spatial" else
+                         "dwconv3x3_bands"):
         if expect[name] <= 0:
-            raise AssertionError(f"{mode} path launched no {name}")
-    cpu = Session(plan, precision="int8", qmodel=qmodel, device="cpu",
-                  max_batch=BATCH)
-    ys_cpu = cpu.submit_many(xs)
+            raise AssertionError(f"{label} path launched no {name}")
+    against = "cpu" if want_ys is None else "card_reference"
+    if want_ys is None:
+        want_ys = Session(plan, precision="int8", qmodel=qmodel,
+                          device="cpu", max_batch=len(xs)).submit_many(xs)
     if ys.shape != (len(xs), *model.out_shape) or ys.dtype.name != "int8":
-        raise AssertionError(f"{mode}: output {ys.shape} {ys.dtype}")
-    if not (ys == ys_cpu).all():
-        raise AssertionError(f"{mode}: card output != CPU output in "
-                             f"{int((ys != ys_cpu).sum())} places")
+        raise AssertionError(f"{label}: output {ys.shape} {ys.dtype}")
+    if not (ys == want_ys).all():
+        raise AssertionError(f"{label}: card output != {against} output in "
+                             f"{int((ys != want_ys).sum())} places")
     if not ys.any():
-        raise AssertionError(f"{mode}: output is all zeros")
+        raise AssertionError(f"{label}: output is all zeros")
     one_ms = []
     for x in xs:
         t0 = time.perf_counter()
         sess.run(x)
         one_ms.append((time.perf_counter() - t0) * 1e3)
     if wrappers["qgemm"].weight_copies:
-        raise AssertionError(f"{mode} path copied "
+        raise AssertionError(f"{label} path copied "
                              f"{wrappers['qgemm'].weight_copies} weights")
     # the warm-up captured one graph a bucket; every dispatch since replayed
     graphs = sess.engine.graph_stats()
     if graphs != dict(captures=len(sess.buckets), eager=len(sess.buckets),
                       replays=len(sess.buckets) + tries + len(xs)):
-        raise AssertionError(f"{mode}: graphs {graphs}, buckets "
+        raise AssertionError(f"{label}: graphs {graphs}, buckets "
                              f"{sess.buckets}")
-    rec = dict(mode=mode, launches=dict(expect), kernels_traced=kernels,
-               traces=tries, bit_exact_vs_cpu=True, weight_copies=0,
+    rec = dict(mode=label, batch=len(xs), launches=dict(expect),
+               kernels_traced=kernels, traces=tries,
+               **{f"bit_exact_vs_{against}": True}, weight_copies=0,
                graphs=graphs,
                ms_request_batch1=statistics.median(one_ms))
     print(f"path {json.dumps(rec)}")
     return rec
+
+
+def effnet_phase(dev) -> tuple[list[dict], dict]:
+    """EfficientNet-B0 at 224x224 (16 squeeze-and-excitation blocks, 9 of
+    them with 5x5 depthwise convs, seed-0 weights, calibrated on the CPU)
+    through the spatial, kernel and neuron splits of RATINGS at batch
+    EFF_BATCH: each plan's answers equal the unsplit int8 walk in plain
+    torch on the card (``reference_forward(..., qmodel=)``) bit for bit,
+    and a profiler trace of each plan's forward shows exactly the kernels
+    ``path_launches`` lists, ``se_pool``, ``se_gate`` and the 5x5 kernel
+    among them.  Returns the paths' records and their launches (runs
+    ``effnet_<mode>``)."""
+    import numpy as np
+    from repro_torch.api import Session
+    from repro_torch.core import CompiledSplitExecutor, split_model
+    from repro_torch.core.executor import reference_forward
+    from repro_torch.models import efficientnet_b0
+    model = efficientnet_b0(seed=0)
+    kinds = [layer.kind for layer in model.layers]
+    n_5x5 = sum(layer.kind == "dwconv" and layer.kernel == (5, 5)
+                for layer in model.layers)
+    if (kinds.count("gate"), n_5x5, model.input_shape, model.out_shape) != (
+            16, 9, (3, 224, 224), (1000, 1, 1)):
+        raise AssertionError("efficientnet_b0 is not the paper's model")
+    rng = np.random.default_rng(7)
+    calib = [rng.standard_normal(model.input_shape).astype(np.float32)
+             for _ in range(2)]
+    qmodel = Session(split_model(model, RATINGS, mode="spatial"),
+                     calibration=calib, device="cpu").qmodel
+    xs = rng.standard_normal((EFF_BATCH, *model.input_shape)).astype(
+        np.float32)
+    ref = np.stack([reference_forward(model, x, device=dev, qmodel=qmodel)
+                    for x in xs])
+    paths, runs = [], {}
+    for mode in ("spatial", "kernel", "neuron"):
+        label = f"effnet_{mode}"
+        eng = CompiledSplitExecutor(split_model(model, RATINGS, mode=mode),
+                                    device=dev)
+        runs[label] = path_launches(eng, EFF_BATCH)
+        del eng
+        expect = {k: sum(1 for kk, _, _ in runs[label] if kk == k)
+                  for k in CNN_WRAPPERS}
+        bands = mode == "spatial"
+        need = ("qgemm", "se_pool", "se_gate",
+                "dwconv3x3_bands" if bands else "dwconv3x3",
+                "dwconv5x5_bands_unpadded" if bands else "dwconv5x5_shards")
+        paths.append(serve_path(mode, model, qmodel, xs, dev, expect,
+                                label=label, want_ys=ref, need=need))
+    return paths, runs
 
 
 def float_path(model, xs, dev):
@@ -1095,7 +1299,7 @@ def serving_phase(model, dev):
     for fn in wrappers.values():
         fn.launches = 0
     shed = _ShedCounter(srv)
-    names = ("qgemm", "dwconv3x3_bands", "dwconv3x3")
+    names = CNN_WRAPPERS
 
     def exact():
         """The requests against ``Session.run``; returns the launches the
@@ -1158,8 +1362,8 @@ def serving_phase(model, dev):
         raise AssertionError(f"serving overload: {over}")
     if not over.p99_s <= SERVE_P99_BOUND_S:
         raise AssertionError(f"serving overload: accepted p99 {over.p99_s}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("qgemm", "dwconv3x3_bands", "dwconv3x3", "se_pool"):
+        if launches[name] <= 0:
             raise AssertionError(f"serving launched no {name}: {launches}")
     buckets = {name: sorted(srv.session(name).stats().per_bucket)
                for name in tenants}
@@ -1256,8 +1460,8 @@ def dw_many_shards(dev) -> dict:
     # path_launches lists one depthwise launch a layer: the tables split
     # them here
     listed = [engine_kind(k) for k, _, _ in path_launches(gpu.engine, 4)]
-    want = dict(qgemm=listed.count("qgemm"),
-                dwconv=sum(r["launches"] for r in layers))
+    want = {kind: listed.count(kind) for kind in ENGINE_KERNELS}
+    want["dwconv"] = sum(r["launches"] for r in layers)
     ys, kernels, _, tries = traced_kernels(
         lambda: (gpu.submit_many(xs), want))
     launched = kernels["dwconv"]
@@ -3344,13 +3548,17 @@ def main() -> int:
                for mode in modes}
     runs = {mode: path_launches(eng, BATCH) for mode, eng in engines.items()}
     del engines
-    names = ("qgemm", "dwconv3x3_bands", "dwconv3x3")
+    names = CNN_WRAPPERS
     paths = []
     for mode in modes:
         expect = {k: sum(1 for kk, _, _ in runs[mode] if kk == k)
                   for k in names}
         expect["decode_attn"] = 0
         paths.append(serve_path(mode, model, qmodel, xs, dev, expect))
+    # EfficientNet-B0: the 5x5 and squeeze-and-excitation kernels
+    eff_paths, eff_runs = effnet_phase(dev)
+    paths += eff_paths
+    runs.update(eff_runs)
     float_path(model, xs, dev)
 
     # the planner stack and the distributed runtime: the committed plan,
@@ -3389,7 +3597,8 @@ def main() -> int:
         sch = r["schedule"]
         split = (f"t{sch['tile'][0]} s{sch['splits']}"
                  if r["kernel"] == "qgemm" else
-                 f"c{sch['c_tile']} r{sch['rows_tile']} "
+                 f"c{sch.get('c_tile', '-')}" if r["kernel"].startswith("se_")
+                 else f"c{sch['c_tile']} r{sch['rows_tile']} "
                  f"z{sch['shards']}")
         print(f"sched {r['kernel'][:6]} "
               f"{'x'.join(map(str, r['shape'][:5]))} {split} "
@@ -3448,22 +3657,25 @@ def main() -> int:
     # processes of their own (CPU only)
     dryrun_phase(out_dir)
 
-    source = {"qgemm": "src/repro_torch/csrc/qgemm.cu",
-              "dwconv3x3_bands": "src/repro_torch/csrc/dwconv.cu",
-              "dwconv3x3": "src/repro_torch/csrc/dwconv.cu"}
+    source = {name: "src/repro_torch/csrc/" + (
+        "qgemm.cu" if name == "qgemm" else
+        "se.cu" if name.startswith("se_") else "dwconv.cu")
+        for name in names}
+    # the reference's kernels each replaces (it has no EfficientNet)
     replaces = {"qgemm": "src/repro/kernels/qgemm/qgemm.py:63",
                 "dwconv3x3_bands": "src/repro/kernels/dwconv/dwconv.py:133",
                 "dwconv3x3": "src/repro/kernels/dwconv/dwconv.py:96"}
     # each kernel's numbers cover the launches of every counted run (the
-    # three engine plans, the in-process distributed run): launches from
-    # the counters, each time the sum over those launches of its
-    # per-launch time at the launch's own shape
+    # three engine plans of each network, the in-process distributed run):
+    # launches from the plans' lists, held against the traces, each time
+    # the sum over those launches of its per-launch time at the launch's
+    # own shape
     counted = [p["mode"] for p in paths]
     line = []
     for name in names:
         fwd = {run: per_run(recs, name, run) for run in counted}
         for p in paths:
-            if fwd[p["mode"]]["launches"] != p["launches"][name]:
+            if fwd[p["mode"]]["launches"] != p["launches"].get(name, 0):
                 raise AssertionError(f"{name}: {p['mode']} counts differ")
             print("forward " + json.dumps(dict(kernel=name, mode=p["mode"],
                                                **fwd[p["mode"]])))
@@ -3480,8 +3692,8 @@ def main() -> int:
                        for r in rows if r["bound_by"] == "bytes")
         line.append(dict(
             name=name, route="cuda", source=source[name],
-            replaces=replaces[name],
-            launches=sum(p["launches"][name] for p in paths),
+            replaces=replaces.get(name),
+            launches=sum(p["launches"].get(name, 0) for p in paths),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             **{key: sum(f[key] for f in fwd.values())
                for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -3490,8 +3702,9 @@ def main() -> int:
                       else "operations"),
             ms_from="profiler" if all(r["device_ms"] is not None
                                       for r in rows) else "events",
-            launches_by_path={p["mode"]: p["launches"][name] for p in paths},
-            serving_launches=serving["launches"][name]))
+            launches_by_path={p["mode"]: p["launches"].get(name, 0)
+                              for p in paths},
+            serving_launches=serving["launches"].get(name, 0)))
     line.append(decode_attn_line(serve, live, attn_recs,
                                  {**fam_totals, **mesh_runs}))
     print(json.dumps({"kernels": line}))

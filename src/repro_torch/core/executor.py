@@ -17,6 +17,15 @@ expand→dwconv→project chain on the band locally, and only the block output
 is aggregated (a static row-axis concat, since bands tile the output rows).
 Residual adds and stashes stay coordinator-side at block boundaries.
 
+A squeeze-and-excitation block (EfficientNet's MBConv, ``fusion.se_cut``) is
+cut by its global pool: each worker runs the expand and depthwise stages on
+its band and keeps the depthwise band; the pool sums every band's own rows
+(a reduction across workers, no halo or fill row counted); the two small
+FCs run on their flat splits; each worker then scales its kept band by the
+gate and runs the project conv on it, and the block output is aggregated
+as before.  In the flat modes the gate is a layer of its own, scaling the
+stashed depthwise output.
+
 Two executors share those semantics:
 
 * :class:`SplitExecutor` — the **eager** oracle.  One dispatch per layer
@@ -31,10 +40,13 @@ Two executors share those semantics:
   uploaded once per (plan fingerprint, device) into a class-level cache, and
   a forward pass never waits on the device.  It always takes the structure
   of the reference's ``use_pallas=True`` path — im2col + ``qgemm`` for
-  convs and linear shards, ``dwconv`` for 3x3 depthwise — and the wrappers
+  convs, one ``qgemm`` over all shards of a linear layer, ``dwconv`` for 3x3
+  and 5x5 depthwise, ``se_pool`` for every global pool — and the wrappers
   alone decide, from the tensor's device, between the CUDA kernel and its
-  plain version.  So the card and the CPU differ only inside the kernels,
-  and int8 output is bit-identical on both and to the reference.  On CUDA
+  plain version.  So the card and the CPU differ only inside the
+  kernels, and int8 output is bit-identical on both and to the reference
+  (swish and sigmoid excepted: their exp is the platform's, see
+  ``quantize.epilogue_params``).  On CUDA
   the first forward at each (mode, input shape) walks the plan once, then
   is captured as one CUDA graph, which every later forward at that key
   replays: the same kernels in the same order, one launch from the host.
@@ -61,7 +73,9 @@ from ..kernels.dwconv.ops import (ShardTable, dwconv_bands_unpadded,
                                    dwconv_shards, shard_table)
 from ..kernels.dwconv.ref import dwconv_acc_int32 as _dwconv_bands_int32
 from ..kernels.qgemm.ops import im2col, im2col_bands, qgemm
-from .fusion import apply_activation
+from ..kernels.se import se_gate, se_pool
+from ..kernels.se.ref import requant, se_gate_ref
+from .fusion import SECut, apply_activation, group_blocks, se_cut
 from .mapping import compile_shard_geometry
 from .quantize import (QuantizedModel, epilogue_params, f32,
                        quantize_activation_t, requantize)
@@ -163,10 +177,22 @@ def _avgpool_int8(x_q, in_scale: float, out_scale: float):
     a single f32 multiply by a host-rounded factor (see
     quantize.epilogue_params for the no-float-adds contract)."""
     hw = x_q.shape[-2] * x_q.shape[-1]
-    factor = f32(float(in_scale) / (hw * float(out_scale)))
+    factor = _pool_factor(in_scale, hw, out_scale)
     s = x_q.to(torch.int32).sum(dim=(-2, -1), keepdim=True)
     return torch.clamp(torch.round(s.to(torch.float32) * factor),
                        -127, 127).to(torch.int8)
+
+
+def _pool_factor(in_scale: float, hw: int, out_scale: float) -> float:
+    """The int8 global pool's one multiply: mean and rescale, rounded to
+    float32 once on the host."""
+    return f32(float(in_scale) / (hw * float(out_scale)))
+
+
+def _gate_factor(x_scale: float, g_scale: float, out_scale: float) -> float:
+    """The int8 gate's one multiply after the exact int32 product of the
+    gated code and the gate code, rounded to float32 once on the host."""
+    return f32(float(x_scale) * float(g_scale) / float(out_scale))
 
 
 def _residual_add_int8(cur_q, cur_scale: float, other_q, other_scale: float):
@@ -279,6 +305,53 @@ class SplitExecutor:
         """Run one fused block: each worker receives its block-input window
         (band + halo), executes every stage on the band locally, and the
         block output bands are concatenated along the row axis."""
+        cut = se_cut(self.plan.model, idxs)
+        if cut is not None:
+            return self._run_se_block(idxs, cut, x, mode)
+        bands = self._run_bands(idxs, x, mode)
+        return torch.cat([b for b in bands if b is not None], dim=1)
+
+    def _run_se_block(self, idxs: tuple[int, ...], cut: SECut, x, mode: str):
+        """A squeeze-and-excitation block cut by its pool: the stages up to
+        the depthwise conv on each worker's band, the pool over every
+        band's own rows (the depthwise bands hold exactly their rows: the
+        gate and the project conv after them are pointwise), the FCs on
+        their flat splits, then each worker's gate and project conv on the
+        band it kept."""
+        model = self.plan.model
+        pre = idxs[:idxs.index(cut.dw) + 1]
+        bands = self._run_bands(pre, x, mode)
+        live = [b for b in bands if b is not None]
+        c, h, w = model.layers[cut.dw].out_shape
+        if mode == "int8":
+            ql = self.qmodel.layers[cut.pool]
+            total = sum(b.to(torch.int32).sum(dim=(1, 2)) for b in live)
+            g = requant(total, _pool_factor(ql.in_scale, h * w,
+                                            ql.out_scale))
+        else:
+            g = sum(b.sum(dim=(1, 2)) for b in live) / (h * w)
+        for i in (cut.fc1, cut.fc2):
+            layer, split = model.layers[i], self.plan.splits[i]
+            g = g.reshape(layer.in_shape)
+            g = (self._run_layer_int8(i, layer, split, g) if mode == "int8"
+                 else self._run_layer_float(layer, split, g))
+        g = g.reshape(c, 1, 1)
+        if mode == "int8":
+            factor = _gate_factor(self.qmodel.layers[cut.dw].out_scale,
+                                  self.qmodel.layers[cut.gate].in_scale,
+                                  self.qmodel.layers[cut.gate].out_scale)
+            gated = [None if b is None else
+                     se_gate_ref(b[None], g.reshape(1, c), factor)[0]
+                     for b in bands]
+        else:
+            gated = [None if b is None else b * g for b in bands]
+        out = self._run_bands((cut.project,), None, mode, gated)
+        return torch.cat([b for b in out if b is not None], dim=1)
+
+    def _run_bands(self, idxs: tuple[int, ...], x, mode: str, bands=None):
+        """Each worker's band through the stages ``idxs``: its window of
+        ``x`` (band + halo), or its entry of ``bands``.  Returns one band a
+        worker, None where its last stage has no rows."""
         model = self.plan.model
         geoms = [self._band_geometry(i) for i in idxs]
         consts = []
@@ -294,8 +367,9 @@ class SplitExecutor:
         parts = []
         for w in range(self.plan.n_workers):
             if geoms[-1][w] is None:
+                parts.append(None)
                 continue
-            band = None
+            band = None if bands is None else bands[w]
             for li, i in enumerate(idxs):
                 layer = model.layers[i]
                 g = geoms[li][w]
@@ -307,7 +381,7 @@ class SplitExecutor:
                     band = torch.zeros((c_out, 0, w_out), dtype=dt,
                                        device=self.device)
                     continue
-                if li == 0:
+                if li == 0 and bands is None:
                     band = x[:, g.in_lo:g.in_hi, :]
                 if mode == "int8":
                     w_q, scale_b, b_t, out_scale = consts[li]
@@ -321,7 +395,7 @@ class SplitExecutor:
                                              int8=False)
                     band = apply_activation(acc, layer.activation)
             parts.append(band)
-        return torch.cat(parts, dim=1)
+        return parts
 
     # -- single-layer worker pass -----------------------------------------
     def _run_layer_float(self, layer: LayerSpec, split: LayerSplit, x):
@@ -353,6 +427,18 @@ class SplitExecutor:
         y_q = requantize(acc, self._t(scale), float(ql.out_scale),
                          layer.activation)
         return y_q.reshape(layer.out_shape)
+
+    def _run_gate(self, i: int, layer: LayerSpec, stashed, g, mode: str):
+        """A flat gate: the whole stashed activation times the gate, each
+        channel by its factor (the shards' flat ranges tile the output in
+        order, so their concatenation is the whole product)."""
+        c = layer.out_shape[0]
+        if mode != "int8":
+            return stashed * g.reshape(c, 1, 1)
+        x_scale, x_q = stashed
+        ql = self.qmodel.layers[i]
+        factor = _gate_factor(x_scale, ql.in_scale, ql.out_scale)
+        return se_gate_ref(x_q[None], g.reshape(1, c), factor)[0]
 
     # -- full-model execution ----------------------------------------------
     def run(self, x: np.ndarray, mode: str = "float",
@@ -387,6 +473,9 @@ class SplitExecutor:
             cur = cur.reshape(model.layers[idxs[0]].in_shape)
             if self.plan.splits[idxs[0]].mode == "spatial":
                 cur = self._run_block_spatial(idxs, cur, mode)
+            elif layer.kind == "gate":
+                cur = self._run_gate(i, layer, stash[layer.gate_from], cur,
+                                     mode)
             elif mode == "int8":
                 cur = self._run_layer_int8(i, layer, self.plan.splits[i], cur)
             else:
@@ -516,6 +605,8 @@ def _plan_fingerprint(plan: SplitPlan, qmodel: QuantizedModel | None) -> str:
         h.update(repr((lyr.kind, lyr.in_shape, lyr.out_shape, lyr.kernel,
                        lyr.stride, lyr.padding, lyr.activation, lyr.save_as,
                        lyr.residual_from)).encode())
+        if lyr.gate_from is not None:
+            h.update(repr(("gate_from", lyr.gate_from)).encode())
         _arr(lyr.weight)
         _arr(lyr.bias)
     if qmodel is not None:
@@ -536,11 +627,14 @@ def _plan_fingerprint(plan: SplitPlan, qmodel: QuantizedModel | None) -> str:
 
 
 def _kernel_eligible_dwconv(layer: LayerSpec) -> bool:
-    """The depthwise kernel covers exactly MobileNet-style depthwise convs:
-    3x3, SAME padding 1, square stride."""
-    return (layer.kind == "dwconv" and layer.kernel == (3, 3)
-            and layer.padding == (1, 1)
-            and layer.stride[0] == layer.stride[1])
+    """The depthwise kernel covers exactly the depthwise convs of MobileNet
+    and EfficientNet: 3x3 or 5x5, SAME padding (1 or 2), square stride 1
+    or 2."""
+    k = layer.kernel[0]
+    return (layer.kind == "dwconv" and k in (3, 5)
+            and layer.kernel == (k, k) and layer.padding == (k // 2, k // 2)
+            and layer.stride[0] == layer.stride[1]
+            and layer.stride[0] in (1, 2))
 
 
 def _uncovered(layer: LayerSpec, t) -> None:
@@ -568,11 +662,13 @@ class _DeviceConstants:
     """Everything one plan needs on one device, uploaded once: per-layer
     int8 and float constants (filled per mode on first use), every fused
     spatial block's gather indices and masks, and the shard table of every
-    flat 3x3 depthwise layer."""
+    flat 3x3 or 5x5 depthwise layer."""
 
     def __init__(self):
         self.int8: dict[int, _Int8Layer] = {}
         self.float: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        # per spatial block: gather indices, masks, output rows and, for a
+        # squeeze-and-excitation block, each band's own depthwise rows
         self.bands: dict[tuple[int, ...], tuple] = {}
         self.shards: dict[int, ShardTable] = {}
         self.modes: set[str] = set()
@@ -645,14 +741,44 @@ class CompiledSplitExecutor:
                 if layer.save_as is not None:
                     self._save_scale[layer.save_as] = float(
                         qmodel.layers[i].out_scale)
-        layers = plan.model.layers
-        # attrs of each block group's ``executor.block`` span
-        self._block_attrs = tuple(
-            {"first": layers[g[0]].name, "last": layers[g[-1]].name,
-             "mode": ("spatial" if plan.splits[g[0]].mode == "spatial"
-                      else "flat"),
-             "kind": "+".join(layers[i].kind for i in g)}
-            for g in plan.block_groups)
+        # squeeze-and-excitation: the cut of each spatial block that has
+        # one, and the span kind of every layer of a block's pool, FCs and
+        # gate
+        self._se_cuts: dict[tuple[int, ...], SECut] = {}
+        self._se_kind: dict[int, str] = {}
+        for block in group_blocks(plan.model):
+            g = block.indices
+            cut = se_cut(plan.model, g)
+            if cut is None:
+                continue
+            if plan.splits[g[0]].mode == "spatial":
+                self._se_cuts[g] = cut
+            self._se_kind.update({cut.pool: "se_pool", cut.fc1: "se_fc",
+                                  cut.fc2: "se_fc", cut.gate: "se_gate"})
+        # attrs of each block group's ``executor.block`` spans: one a group,
+        # four for a cut one (the bands before the pool, the pool, the FCs,
+        # the gate and the rest)
+        self._block_attrs = tuple(self._span_attrs(g)
+                                  for g in plan.block_groups)
+
+    def _span_attrs(self, g: tuple[int, ...]) -> tuple[dict, ...]:
+        layers = self.plan.model.layers
+        mode = ("spatial" if self.plan.splits[g[0]].mode == "spatial"
+                else "flat")
+
+        def attrs(first, last, kind):
+            return {"first": layers[first].name, "last": layers[last].name,
+                    "mode": mode, "kind": kind}
+
+        cut = self._se_cuts.get(g)
+        if cut is None:
+            kind = "+".join(self._se_kind.get(i, layers[i].kind) for i in g)
+            return (attrs(g[0], g[-1], kind),)
+        pre = g[:g.index(cut.dw) + 1]
+        return (attrs(g[0], cut.dw, "+".join(layers[i].kind for i in pre)),
+                attrs(cut.pool, cut.pool, "se_pool"),
+                attrs(cut.fc1, cut.fc2, "se_fc"),
+                attrs(cut.gate, g[-1], "se_gate+conv"))
 
     # -- device constants ----------------------------------------------------
     # Shared ACROSS executor instances keyed on (plan fingerprint, device):
@@ -686,11 +812,17 @@ class CompiledSplitExecutor:
         cls._fn_cache_misses = 0
 
     def _banded_block(self, idxs: tuple[int, ...]) -> _BandedBlock:
+        """The block's band schedule: over its conv stages alone where a
+        squeeze-and-excitation cut runs between them (the pool and the FCs
+        leave the bands, and the gate scales them in place)."""
         key = tuple(idxs)
         if key not in self._banded_cache:
-            geoms = [self._band_geometry[i] for i in idxs]
+            cut = self._se_cuts.get(key)
+            stages = key if cut is None else tuple(
+                i for i in key if i not in (*cut.reduce, cut.gate))
+            geoms = [self._band_geometry[i] for i in stages]
             self._banded_cache[key] = _compile_banded_block(
-                self.plan.model, key, geoms)
+                self.plan.model, stages, geoms)
         return self._banded_cache[key]
 
     def _constants(self, mode: str) -> _DeviceConstants:
@@ -752,10 +884,16 @@ class CompiledSplitExecutor:
             if self.plan.splits[idxs[0]].mode != "spatial" or idxs in consts.bands:
                 continue
             bb = self._banded_block(idxs)
+            cut = self._se_cuts.get(idxs)
+            rows = None
+            if cut is not None:
+                dw = self._band_geometry[cut.dw]
+                rows = tuple(dw[w].n_rows if dw[w] is not None else 0
+                             for w in bb.bands)
             consts.bands[idxs] = (
                 [t(st.src_rows, torch.int64) for st in bb.stages],
                 [t(st.mask) for st in bb.stages],
-                t(bb.out_flat, torch.int64))
+                t(bb.out_flat, torch.int64), rows)
 
     # -- per-layer bodies (batch-first) -------------------------------------
     def _layer_float(self, i: int, layer: LayerSpec, split: LayerSplit, cur,
@@ -786,22 +924,25 @@ class CompiledSplitExecutor:
         y = torch.cat(parts, dim=1).reshape(bsz, *layer.out_shape)
         return apply_activation(y, layer.activation)
 
-    def _layer_int8(self, i: int, layer: LayerSpec, split: LayerSplit, cur,
+    def _layer_int8(self, i: int, layer: LayerSpec, cur,
                     consts: _DeviceConstants):
         ql = self.qmodel.layers[i]
-        if layer.kind == "avgpool":
-            return _avgpool_int8(cur, ql.in_scale, ql.out_scale)
-        c = consts.int8[i]
         bsz = cur.shape[0]
+        if layer.kind == "avgpool":
+            # each sample one band of all its rows
+            _, h, w = layer.in_shape
+            y = se_pool(cur, (h,), _pool_factor(ql.in_scale, h * w,
+                                                ql.out_scale))
+            return y.reshape(bsz, *layer.out_shape)
+        c = consts.int8[i]
         act, out_scale = layer.activation, c.out_scale
 
         if layer.kind == "linear":
-            xv = cur.reshape(bsz, -1)
-            parts = [qgemm(xv, c.w_gemm[:, sh.start:sh.stop],
-                           c.scale[sh.start:sh.stop], c.b_q[sh.start:sh.stop],
-                           activation=act, out_scale=out_scale)
-                     for sh in split.shards if sh.n_positions]
-            return torch.cat(parts, dim=1).reshape(bsz, *layer.out_shape)
+            # the shards' columns tile the layer in worker order (contiguous
+            # ``partition_bounds``): one launch over all of them
+            y = qgemm(cur.reshape(bsz, -1), c.w_gemm, c.scale, c.b_q,
+                      activation=act, out_scale=out_scale)
+            return y.reshape(bsz, *layer.out_shape)
 
         _, h_out, w_out = layer.out_shape
         hw = h_out * w_out
@@ -842,8 +983,8 @@ class CompiledSplitExecutor:
         """One batched-band int8 conv stage over the gathered windows
         ``xw`` ((batch*bands, C_in, R, W + 2*pw), zero rows in place): one
         ``im2col_bands`` + ``qgemm`` launch, with the bands (and the batch)
-        folded into the GEMM's M.  (A 3x3 depthwise stage is one
-        ``dwconv3x3_bands`` launch on the unpadded windows, in
+        folded into the GEMM's M.  (A 3x3 or 5x5 depthwise stage is
+        one ``dwconv_bands_unpadded`` launch on the unpadded windows, in
         :meth:`_block_spatial`.)"""
         act, out_scale = layer.activation, c.out_scale
         if layer.kind == "conv":
@@ -857,20 +998,27 @@ class CompiledSplitExecutor:
                           c.scale[:, None, None], out_scale, act)
 
     def _block_spatial(self, idxs: tuple[int, ...], cur, mode: str,
-                       consts: _DeviceConstants):
+                       consts: _DeviceConstants, mark, attrs: tuple):
         """Fused spatial block, batched over samples and bands: every stage
         executes ALL workers' bands of every sample as one launch on a
         (batch*bands, C, rows, W) stack (heterogeneous band heights
         zero-filled to the common window height).  The block-boundary halo
         gather happens once, against the block input; interior stages
         re-gather band-locally from the previous stage's stack.  One static
-        row gather aggregates the output rows."""
+        row gather aggregates the output rows.
+
+        A squeeze-and-excitation block leaves the bands after its depthwise
+        stage (:meth:`_squeeze_excite`) and comes back to them for the
+        project stage; ``mark(attrs[k])`` ends its k-th span there (the
+        last one ends in :meth:`_forward`)."""
         model = self.plan.model
-        srcs, masks, out_flat = consts.bands[idxs]
+        srcs, masks, out_flat, own_rows = consts.bands[idxs]
+        cut = self._se_cuts.get(idxs)
+        stages = self._banded_block(idxs).idxs
         bsz = cur.shape[0]
         n_bands = len(srcs[0])
         x = None
-        for li, idx in enumerate(idxs):
+        for li, idx in enumerate(stages):
             layer = model.layers[idx]
             _, pw = layer.padding
             src, mask = srcs[li], masks[li]
@@ -904,11 +1052,64 @@ class CompiledSplitExecutor:
                 acc = _conv_bands(_pad_chw(xw, (0, pw)), wt, layer.stride,
                                   int8=False)
                 x = apply_activation(acc + b[:, None, None], layer.activation)
+            if cut is not None and idx == cut.dw:
+                x = self._squeeze_excite(cut, x, bsz, own_rows, masks[li + 1],
+                                         mode, consts, mark, attrs)
         # (batch*bands, C, r_out, W) -> one static row gather aggregates
         c_out, r_out, width = x.shape[1], x.shape[2], x.shape[3]
         y = x.reshape(bsz, n_bands, c_out, r_out, width).permute(0, 2, 1, 3, 4)
         y = y.reshape(bsz, c_out, n_bands * r_out, width)
         return y.index_select(2, out_flat)
+
+    def _squeeze_excite(self, cut: SECut, x, bsz: int, rows, own, mode: str,
+                        consts: _DeviceConstants, mark, attrs):
+        """The squeeze-and-excitation of a cut block on the depthwise band
+        stack ``x`` ((batch*bands, C, r, W); band b owns its first
+        ``rows[b]`` rows, ``own`` marks them): the pool over every band's
+        own rows (``se_pool``), the two FCs, each one launch over all of
+        its shards' columns, and the gate multiply of the stack
+        (``se_gate``).  Returns the gated stack."""
+        model = self.plan.model
+        c, h, w = model.layers[cut.dw].out_shape
+        mark(attrs[0])
+        if mode == "int8":
+            ql = self.qmodel.layers[cut.pool]
+            g = se_pool(x, rows, _pool_factor(ql.in_scale, h * w,
+                                              ql.out_scale))
+        else:
+            xs = x.reshape(bsz, -1, c, x.shape[2], x.shape[3])
+            g = torch.where(own, xs, 0).sum(dim=(1, 3, 4)) / (h * w)
+        mark(attrs[1])
+        for i in (cut.fc1, cut.fc2):
+            layer = model.layers[i]
+            if mode == "int8":
+                fc = consts.int8[i]
+                g = qgemm(g, fc.w_gemm, fc.scale, fc.b_q,
+                          activation=layer.activation,
+                          out_scale=fc.out_scale)
+            else:
+                wt, b = consts.float[i]
+                g = apply_activation(g @ wt + b, layer.activation)
+        mark(attrs[2])
+        if mode == "int8":
+            return se_gate(x, g, _gate_factor(
+                self.qmodel.layers[cut.dw].out_scale,
+                self.qmodel.layers[cut.gate].in_scale,
+                self.qmodel.layers[cut.gate].out_scale))
+        xs = x.reshape(bsz, -1, c, x.shape[2], x.shape[3])
+        return (xs * g[:, None, :, None, None]).reshape(x.shape)
+
+    def _gate(self, i: int, layer: LayerSpec, stashed, g, mode: str):
+        """A flat gate: the stashed activation (batch, C, H, W) times the
+        gate (batch, C), each channel by its factor — the shards' flat
+        ranges tile the output, so one launch covers them all."""
+        bsz, c = g.shape[0], layer.out_shape[0]
+        g = g.reshape(bsz, c)
+        if mode != "int8":
+            return stashed * g[:, :, None, None]
+        ql = self.qmodel.layers[i]
+        return se_gate(stashed, g, _gate_factor(
+            self._save_scale[layer.gate_from], ql.in_scale, ql.out_scale))
 
     # -- plan execution -------------------------------------------------------
     def _forward(self, x, mode: str, dispatch: int | None = None):
@@ -926,18 +1127,27 @@ class CompiledSplitExecutor:
         else:
             cur = x
         stash: dict[str, torch.Tensor] = {}
-        # one clock read a block: each block's span starts where the one
+        # one clock read a span: each block's span starts where the one
         # before it ends
-        t_ns = None if dispatch is None else time.perf_counter_ns()
+        t_ns = [None if dispatch is None else time.perf_counter_ns()]
+
+        def mark(attrs):
+            if t_ns[0] is not None:
+                t1_ns = time.perf_counter_ns()
+                trace.record("executor.block", dispatch, t_ns[0], t1_ns, attrs)
+                t_ns[0] = t1_ns
+
         for g, idxs in enumerate(self.plan.block_groups):
             i = idxs[-1]
             layer = model.layers[i]
             cur = cur.reshape(bsz, *model.layers[idxs[0]].in_shape)
             if self.plan.splits[idxs[0]].mode == "spatial":
-                cur = self._block_spatial(idxs, cur, mode, consts)
+                cur = self._block_spatial(idxs, cur, mode, consts, mark,
+                                          self._block_attrs[g])
+            elif layer.kind == "gate":
+                cur = self._gate(i, layer, stash[layer.gate_from], cur, mode)
             elif mode == "int8":
-                cur = self._layer_int8(i, layer, self.plan.splits[i], cur,
-                                       consts)
+                cur = self._layer_int8(i, layer, cur, consts)
             else:
                 cur = self._layer_float(i, layer, self.plan.splits[i], cur,
                                         consts)
@@ -951,11 +1161,7 @@ class CompiledSplitExecutor:
                     cur = cur + stash[layer.residual_from]
             if layer.save_as is not None:
                 stash[layer.save_as] = cur
-            if t_ns is not None:
-                t1_ns = time.perf_counter_ns()
-                trace.record("executor.block", dispatch, t_ns, t1_ns,
-                             self._block_attrs[g])
-                t_ns = t1_ns
+            mark(self._block_attrs[g][-1])
         return cur
 
     def _capture(self, x, mode: str, dispatch: int | None) -> _Graph:
@@ -1081,10 +1287,16 @@ class CompiledSplitExecutor:
 
 
 def reference_forward(model, x: np.ndarray, collect_activations: bool = False,
-                      *, device=None):
+                      *, device=None, qmodel: QuantizedModel | None = None):
     """Monolithic single-device float forward (the infeasible-on-MCU
-    baseline the split execution must match numerically)."""
+    baseline the split execution must match numerically).  With ``qmodel``
+    the same unsplit walk in int8, in plain torch with exact int32 sums:
+    the int8 answer no split may change."""
     dev = resolve_device(device)
+    if qmodel is not None:
+        if collect_activations:
+            raise ValueError("collect_activations is for the float forward")
+        return _reference_int8(qmodel, x, dev)
     stash = {}
     acts = []
     with _full_fp32():
@@ -1093,6 +1305,8 @@ def reference_forward(model, x: np.ndarray, collect_activations: bool = False,
             cur = cur.reshape(layer.in_shape)
             if layer.kind == "avgpool":
                 cur = cur.mean(dim=(1, 2), keepdim=True)
+            elif layer.kind == "gate":
+                cur = stash[layer.gate_from] * cur
             else:
                 w = torch.as_tensor(layer.weight, dtype=torch.float32,
                                     device=dev)
@@ -1113,3 +1327,41 @@ def reference_forward(model, x: np.ndarray, collect_activations: bool = False,
                 acts.append(cur.cpu().numpy())
     out = cur.cpu().numpy()
     return (out, acts) if collect_activations else out
+
+
+def _reference_int8(qmodel: QuantizedModel, x: np.ndarray, dev):
+    """:func:`reference_forward` in int8: every layer whole, as one worker
+    would run it."""
+    stash: dict[str, tuple[float, torch.Tensor]] = {}
+    cur = quantize_activation_t(
+        torch.as_tensor(np.asarray(x, np.float32), device=dev),
+        qmodel.input_scale)
+    for layer, ql in zip(qmodel.model.layers, qmodel.layers):
+        cur = cur.reshape(layer.in_shape)
+        if layer.kind == "avgpool":
+            cur = _avgpool_int8(cur, ql.in_scale, ql.out_scale)
+        elif layer.kind == "gate":
+            x_scale, x_q = stash[layer.gate_from]
+            c = layer.out_shape[0]
+            cur = se_gate_ref(x_q[None], cur.reshape(1, c), _gate_factor(
+                x_scale, ql.in_scale, ql.out_scale))[0]
+        else:
+            scale, b_q = epilogue_params(ql)
+            w = torch.as_tensor(ql.w_q, device=dev)
+            b = torch.as_tensor(b_q, device=dev)
+            if layer.kind == "linear":
+                acc = (cur.reshape(-1).to(torch.float64)
+                       @ w.to(torch.float64)).to(torch.int32) + b
+                sc = torch.as_tensor(scale, device=dev)
+            else:
+                acc = _conv_chw(_pad_chw(cur, layer.padding), w,
+                                layer.stride, int8=True) + b[:, None, None]
+                sc = torch.as_tensor(scale, device=dev)[:, None, None]
+            cur = requantize(acc, sc, float(ql.out_scale), layer.activation)
+        if layer.residual_from is not None:
+            oth_scale, oth_q = stash[layer.residual_from]
+            cur = _residual_add_int8(cur, float(ql.out_scale), oth_q,
+                                     oth_scale)
+        if layer.save_as is not None:
+            stash[layer.save_as] = (float(ql.out_scale), cur)
+    return cur.reshape(qmodel.model.out_shape).cpu().numpy()

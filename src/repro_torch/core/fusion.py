@@ -12,6 +12,13 @@ the spatial partitioning mode (MCUNetV2-style patch inference): a worker runs
 a whole block on its output-height band so the expanded hidden activation only
 ever exists at band size, never at full resolution.
 
+An MBConv block with squeeze-and-excitation (EfficientNet) is grouped too:
+``[expand] -> dwconv -> avgpool -> linear -> linear -> gate -> project``.
+Its global pool cuts the block (:class:`SECut`): the expand and depthwise
+stages run on bands, the pool sums every band's own rows across workers, the
+two small FCs run flat, and the gate multiply and the project conv run on
+the bands again, against the depthwise band each worker kept.
+
 Port copy of ``repro/core/fusion.py`` (numpy only, no torch): the port cannot import
 the reference, whose package pulls in JAX, so it carries this copy and
 ``tests/test_torch_host.py`` pins it to the reference's outputs.
@@ -76,6 +83,36 @@ class FusedBlock:
         return len(self.indices)
 
 
+@dataclasses.dataclass(frozen=True)
+class SECut:
+    """Where a squeeze-and-excitation block's global pool cuts it: the
+    layer indices of the depthwise conv whose output is stashed and gated,
+    the pool, the two FCs, the gate and the project conv."""
+
+    dw: int
+    pool: int
+    fc1: int
+    fc2: int
+    gate: int
+    project: int
+
+    @property
+    def reduce(self) -> tuple[int, int, int]:
+        """The layers between the bands: the pool and the two FCs."""
+        return (self.pool, self.fc1, self.fc2)
+
+
+def se_cut(model, indices) -> SECut | None:
+    """The :class:`SECut` of the block ``indices`` (a tuple of layer
+    indices), or None when the block has no squeeze-and-excitation."""
+    layers = model.layers
+    kinds = tuple(layers[i].kind for i in indices)
+    tail = ("dwconv", "avgpool", "linear", "linear", "gate", "conv")
+    if kinds[-len(tail):] != tail or len(kinds) > len(tail) + 1:
+        return None
+    return SECut(*indices[-len(tail):])
+
+
 def _is_pointwise(layer) -> bool:
     return (layer.kind == "conv" and layer.kernel == (1, 1)
             and layer.stride == (1, 1) and layer.padding == (0, 0))
@@ -95,8 +132,13 @@ def group_blocks(model) -> list[FusedBlock]:
     * ``conv1x1(s=1) -> dwconv -> conv1x1(s=1)``  (expand / dw / project)
     * ``dwconv -> conv1x1(s=1)``                  (t=1 block, no expansion)
 
+    * ``[conv1x1(s=1)] -> dwconv -> avgpool -> linear -> linear -> gate ->
+      conv1x1(s=1)``                          (squeeze-and-excitation MBConv,
+      cut by its pool: :func:`se_cut`)
+
     Interior layers must carry no ``save_as``/``residual_from`` bookkeeping
-    (those are coordinator-side and require the full tensor).  ``save_as`` /
+    (those are coordinator-side and require the full tensor), except the
+    depthwise output a block's own gate scales.  ``save_as`` /
     ``residual_from`` on the *last* layer of a block is fine — the block
     output is aggregated exactly like an unfused layer's.  Everything else
     (stem conv, head conv, avgpool, linear) becomes a singleton block.
@@ -105,6 +147,11 @@ def group_blocks(model) -> list[FusedBlock]:
     blocks: list[FusedBlock] = []
     i = 0
     while i < len(layers):
+        se = _se_block_at(layers, i)
+        if se:
+            blocks.append(FusedBlock(tuple(range(i, i + se))))
+            i += se
+            continue
         if (i + 2 < len(layers)
                 and _is_pointwise(layers[i])
                 and layers[i + 1].kind == "dwconv"
@@ -129,14 +176,50 @@ def group_blocks(model) -> list[FusedBlock]:
     return blocks
 
 
+def _se_block_at(layers, i: int) -> int:
+    """The length of the squeeze-and-excitation MBConv block starting at
+    layer ``i``, or 0 where none starts there."""
+    start = i
+    if (i < len(layers) and _is_pointwise(layers[i])
+            and _fusable_interior(layers[i])):
+        i += 1                                   # the expand conv
+    if i + 5 >= len(layers):
+        return 0
+    dw, pool, fc1, fc2, gate, proj = layers[i:i + 6]
+    chain = (dw.kind, pool.kind, fc1.kind, fc2.kind, gate.kind)
+    if (chain != ("dwconv", "avgpool", "linear", "linear", "gate")
+            or not _is_pointwise(proj)
+            or dw.save_as is None or dw.residual_from is not None
+            or gate.gate_from != dw.save_as
+            or not all(_fusable_interior(lyr) for lyr in (pool, fc1, fc2, gate))
+            or gate.out_shape != proj.in_shape
+            or (i > start and layers[start].out_shape != dw.in_shape)):
+        return 0
+    return i + 6 - start
+
+
+def sigmoid(x):
+    """``1 / (1 + exp(-x))`` in the input's precision, for numpy arrays and
+    torch tensors: an add, a division and the platform's accurate exp (the
+    CUDA kernels' ``expf``, never a fast-math intrinsic)."""
+    if isinstance(x, np.ndarray):
+        return 1.0 / (1.0 + np.exp(-x))
+    return 1.0 / (1.0 + (-x).exp())
+
+
 def apply_activation(x, activation: str | None):
     """In-place-style fused activation (works for numpy arrays and torch
     tensors).  The ``x * (x > 0)`` form is kept from the reference so int8
-    requantization rounds bit for bit as there."""
+    requantization rounds bit for bit as there.  ``swish`` is
+    ``x * sigmoid(x)`` (one multiply after :func:`sigmoid`)."""
     if activation is None:
         return x
     if activation == "relu":
         return x * (x > 0)
     if activation == "relu6":
         return (x * (x > 0)).clip(max=6.0)
+    if activation == "swish":
+        return x * sigmoid(x)
+    if activation == "sigmoid":
+        return sigmoid(x)
     raise ValueError(f"unknown activation {activation!r}")

@@ -167,6 +167,9 @@ def worker_input_regions(layer: LayerSpec, split: LayerSplit) -> list[list[Input
     out: list[list[InputRegion]] = []
     for shard in split.shards:
         regions: list[InputRegion] = []
+        if layer.kind == "gate":
+            out.append(_gate_regions(layer, shard))
+            continue
         if isinstance(shard, SpatialShard):
             # spatial band: all input channels x the band's receptive-field
             # row window (band + halo) x full width.  For fused interior
@@ -212,6 +215,26 @@ def worker_input_regions(layer: LayerSpec, split: LayerSplit) -> list[list[Input
                     regions.append(InputRegion(c_lo, c_hi, col_map))
         out.append(regions)
     return out
+
+
+def _gate_regions(layer: LayerSpec, shard) -> list[InputRegion]:
+    """What a gate shard is routed: the factors of the channels it touches
+    and, for a flat shard, its own positions of the gated activation (a
+    spatial shard scales the depthwise band its worker kept, which is
+    resident, not routed: ``memory.plan_memory`` counts it)."""
+    if shard.n_positions == 0:
+        return []
+    c_out, _, w_out = layer.out_shape
+    if isinstance(shard, SpatialShard):
+        return [InputRegion(0, c_out, {0: [(0, 1)]})]
+    spans = _rows_cols_for_flat_range(layer, shard.start, shard.stop)
+    chans = sorted({c for *_, c in spans})
+    regions = [InputRegion(chans[0], chans[-1] + 1, {0: [(0, 1)]})]
+    per_ch: dict[int, dict[int, list[tuple[int, int]]]] = {}
+    for row, w_lo, w_hi, c in spans:
+        per_ch.setdefault(c, {}).setdefault(row, []).append((w_lo, w_hi))
+    regions += [InputRegion(c, c + 1, rows) for c, rows in per_ch.items()]
+    return regions
 
 
 def compile_shard_geometry(layer: LayerSpec,
@@ -314,6 +337,14 @@ def comm_volume(prev_split: LayerSplit | None, layer: LayerSpec,
     if prev_split is not None and prev_split.block_last:
         for shard in prev_split.shards:
             up[shard.worker] += shard.n_positions * itemsize
+    elif (prev_split is not None and layer.kind == "avgpool"
+          and prev_split.mode == "spatial"):
+        # a squeeze-and-excitation pool cutting a spatial block: each band
+        # sends up its channels' int32 partial sums, which the coordinator
+        # reduces
+        for shard in prev_split.shards:
+            if shard.n_positions:
+                up[shard.worker] += layer.in_shape[0] * 4
     down = np.zeros(len(split.shards), dtype=np.int64)
     if split.block_first:
         regions = worker_input_regions(layer, split)

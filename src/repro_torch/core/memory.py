@@ -25,6 +25,7 @@ import dataclasses
 
 import numpy as np
 
+from .fusion import se_cut
 from .mapping import worker_input_regions
 from .splitting import LayerSplit, SplitPlan
 
@@ -60,9 +61,25 @@ def split_memory(split: LayerSplit, itemsize: int = 1,
 
 def plan_memory(plan: SplitPlan, itemsize: int = 1,
                 weight_itemsize: int | None = None) -> list[LayerMemory]:
-    """Per-layer, per-worker memory terms (itemsize=1 → int8 activations)."""
-    return [split_memory(split, itemsize, weight_itemsize)
+    """Per-layer, per-worker memory terms (itemsize=1 → int8 activations).
+
+    A spatial squeeze-and-excitation block keeps each worker's depthwise
+    band resident from the depthwise conv to the gate that scales it, over
+    the pool's reduction and the FCs' round trip: that band is added to the
+    input term of the pool, both FCs and the gate."""
+    mems = [split_memory(split, itemsize, weight_itemsize)
             for split in plan.splits]
+    for idxs in plan.block_groups:
+        cut = se_cut(plan.model, idxs)
+        if cut is None or plan.splits[cut.dw].mode != "spatial":
+            continue
+        held = np.array([s.n_positions * itemsize
+                         for s in plan.splits[cut.dw].shards], dtype=np.int64)
+        for i in (*cut.reduce, cut.gate):
+            m = mems[i]
+            mems[i] = LayerMemory(m.layer_name, m.per_worker_in + held,
+                                  m.per_worker_weight, m.per_worker_out)
+    return mems
 
 
 def peak_ram_per_worker(plan: SplitPlan, itemsize: int = 1,

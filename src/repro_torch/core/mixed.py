@@ -73,7 +73,8 @@ from .mapping import comm_volume
 from .memory import split_memory
 from .reinterpret import ReinterpretedModel, macs_for_positions
 from .simulator import SimConfig, _comp_seconds
-from .splitting import (MODES, LayerSplit, split_block_spatial, split_layer)
+from .splitting import (MODES, LayerSplit, refuse_gates, split_block_spatial,
+                        split_layer)
 
 MINIMIZE_TARGETS = ("latency", "comm_bytes", "peak_ram")
 DP_TRANSPORTS = ("serial", "pipelined")
@@ -309,8 +310,10 @@ def search_mixed_assignment(model: ReinterpretedModel,
     :class:`~repro_torch.core.search.CostCache` or anything with ``get``/``put``)
     memoizes the block-cost tables across calls — the tables are
     cap-independent, so one table serves both transports, every
-    ``minimize`` and every RAM-cap objective.
+    ``minimize`` and every RAM-cap objective.  A model with a
+    squeeze-and-excitation gate is refused (``NotImplementedError``).
     """
+    refuse_gates(model, "search_mixed_assignment")
     if minimize not in MINIMIZE_TARGETS:
         raise ValueError(f"unknown minimize {minimize!r} "
                          f"(want one of {MINIMIZE_TARGETS})")

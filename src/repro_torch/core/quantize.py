@@ -109,6 +109,23 @@ def epilogue_params(ql: QuantizedLayer) -> tuple[np.ndarray, np.ndarray]:
     *multiply*: a float add next to a multiply may be contracted into an FMA
     by one compiler and not by another, which flips requantization rounding
     at ties.  With multiplies only, every path rounds identically.
+
+    relu and relu6 are clamps of ``y_real``.  swish and sigmoid
+    (EfficientNet) come between the two multiplies, in float32:
+
+        s      = 1 / (1 + exp(-y_real))     # exp, a rounded add, a rounded
+                                            # division (fusion.sigmoid)
+        y_real = y_real * s                 # swish: one rounded multiply
+        y_real = s                          # sigmoid
+
+    The one step whose rounding belongs to the platform is ``exp``: the CUDA
+    kernels call the accurate ``expf`` (never ``__expf``; the build passes
+    no ``--use_fast_math``), the plain versions ``torch.exp``.  On the card
+    a plain version runs the same ``expf`` and agrees bit for bit; torch's
+    exp on the CPU may differ from it in the last bit, which moves a
+    requantized code by one only where ``y_real * (1 / out_scale)`` sits
+    within that bit of a rounding tie.  Every executor on one platform
+    rounds identically.
     """
     m = (ql.in_scale * ql.w_scale).astype(np.float32)
     return m, ql.b_q.astype(np.int32)

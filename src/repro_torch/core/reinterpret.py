@@ -40,6 +40,9 @@ class LayerSpec:
       * ``linear``  — fully connected, weight ``(in_features, out_features)``
                       (column ``j`` == output neuron ``j``, paper Alg. 2)
       * ``avgpool`` — global average pool (no weights; coordinator-side)
+      * ``gate``    — squeeze-and-excitation gate: the activation stashed
+                      under ``gate_from`` (``out_shape``) times this
+                      layer's input, one factor per channel (``(C, 1, 1)``)
     """
 
     name: str
@@ -51,11 +54,13 @@ class LayerSpec:
     stride: tuple[int, int] = (1, 1)
     padding: tuple[int, int] = (0, 0)
     kernel: tuple[int, int] = (1, 1)
-    activation: str | None = None      # None | "relu" | "relu6" (fused, §V.D)
+    # None | "relu" | "relu6" | "swish" | "sigmoid" (fused, §V.D)
+    activation: str | None = None
     # Residual bookkeeping: coordinator-side (the coordinator "prepares the
     # input activations for the next layer", Alg. 4 line 9 — adds happen there).
     save_as: str | None = None         # stash this layer's output under a key
     residual_from: str | None = None   # add stashed activation to this output
+    gate_from: str | None = None       # gate: the stashed activation it scales
 
     def __post_init__(self) -> None:
         if self.kind in ("conv", "dwconv") and self.weight is not None:
@@ -87,6 +92,10 @@ class LayerSpec:
         ci, hi, wi = self.in_shape
         if self.kind == "linear":
             return range(ci), range(1), range(1)
+        if self.kind == "gate":
+            # the gate's factor of channel c (the stashed activation at
+            # (c, h, w) is its second input)
+            return range(c, c + 1), range(1), range(1)
         if self.kind == "avgpool":
             return range(c, c + 1), range(hi), range(wi)
         kh, kw = self.kernel
@@ -112,7 +121,7 @@ class LayerSpec:
         rows [h_lo, h_hi] (inclusive).  Vectorized form of receptive_field
         used by the scalable mapping path."""
         _, hi, _ = self.in_shape
-        if self.kind in ("linear", "avgpool"):
+        if self.kind in ("linear", "avgpool", "gate"):
             return 0, hi
         kh, _ = self.kernel
         sh, _ = self.stride
@@ -123,7 +132,7 @@ class LayerSpec:
 
     def input_cols_for_output_cols(self, w_lo: int, w_hi: int) -> tuple[int, int]:
         _, _, wi = self.in_shape
-        if self.kind in ("linear", "avgpool"):
+        if self.kind in ("linear", "avgpool", "gate"):
             return 0, wi
         _, kw = self.kernel
         _, sw = self.stride
@@ -150,12 +159,27 @@ class ReinterpretedModel:
 
     def __post_init__(self) -> None:
         prev = self.input_shape
+        stashed: dict[str, Shape3] = {}
         for lyr in self.layers:
             # Element count must chain; exact shape may differ by a flatten
             # (CHW row-major flat order is preserved, so indices still line up).
             if int(np.prod(lyr.in_shape)) != int(np.prod(prev)):
                 raise ValueError(
                     f"layer {lyr.name}: in_shape {lyr.in_shape} != upstream {prev}")
+            if lyr.kind == "gate":
+                # a gate scales a stashed activation of its own output shape
+                # by one factor a channel
+                src = stashed.get(lyr.gate_from)
+                if src is None or tuple(src) != tuple(lyr.out_shape):
+                    raise ValueError(
+                        f"layer {lyr.name}: gates {lyr.gate_from!r} of shape "
+                        f"{src}, want a stashed {lyr.out_shape}")
+                if tuple(lyr.in_shape) != (lyr.out_shape[0], 1, 1):
+                    raise ValueError(
+                        f"layer {lyr.name}: gate input {lyr.in_shape} is not "
+                        f"one factor of each of {lyr.out_shape[0]} channels")
+            if lyr.save_as is not None:
+                stashed[lyr.save_as] = lyr.out_shape
             prev = lyr.out_shape
 
     @property
@@ -176,6 +200,8 @@ def layer_macs(layer: LayerSpec) -> int:
         return layer.in_shape[0] * c
     if layer.kind == "avgpool":
         return layer.n_in
+    if layer.kind == "gate":
+        return layer.n_out
     kh, kw = layer.kernel
     cin = 1 if layer.kind == "dwconv" else layer.in_shape[0]
     return c * h * w * kh * kw * cin
@@ -197,12 +223,15 @@ def trace_sequential(spec: Sequence[dict], input_shape: Shape3,
     """Build a ReinterpretedModel from a declarative op list.
 
     Each dict: {kind, out_channels?, kernel?, stride?, padding?, features?,
-    activation?, save_as?, residual_from?}.  Weights are taken from 'weight'/
+    activation?, save_as?, residual_from?, gate_from?}.  A ``gate`` scales
+    the activation a conv or dwconv stashed under ``gate_from`` by the
+    current (C, 1, 1) tensor.  Weights are taken from 'weight'/
     'bias' keys if present, else randomly initialized (He) via ``rng`` —
     mirrors the paper's offline trace of a pre-trained network.
     """
     rng = rng or np.random.default_rng(0)
     layers: list[LayerSpec] = []
+    stashed: dict[str, Shape3] = {}
     cur = tuple(input_shape)
     for i, op in enumerate(spec):
         kind = op["kind"]
@@ -262,10 +291,19 @@ def trace_sequential(spec: Sequence[dict], input_shape: Shape3,
         elif kind == "avgpool":
             layers.append(LayerSpec(name, "avgpool", cur, (cur[0], 1, 1)))
             cur = (cur[0], 1, 1)
+        elif kind == "gate":
+            src = op["gate_from"]
+            if src not in stashed:
+                raise ValueError(f"gate {name}: nothing stashed as {src!r}")
+            layers.append(LayerSpec(name, "gate", cur, stashed[src],
+                                    gate_from=src))
+            cur = stashed[src]
         elif kind == "flatten":
             # Flatten is implicit: CHW row-major flat order is preserved, so a
             # downstream linear simply declares in_shape (C*H*W, 1, 1).
             cur = (cur[0] * cur[1] * cur[2], 1, 1)
         else:
             raise ValueError(f"unknown op kind {kind!r}")
+        if layers and layers[-1].save_as is not None:
+            stashed[layers[-1].save_as] = layers[-1].out_shape
     return ReinterpretedModel(layers=list(layers), input_shape=tuple(input_shape))

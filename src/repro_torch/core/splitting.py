@@ -26,7 +26,12 @@ Three partitioning modes:
   size.  This trades weight replication + halo recompute for a much smaller
   activation working set — the winning trade in early high-resolution /
   low-channel stages where routed input regions dominate per-worker peak RAM.
-  Linear/avgpool layers fall back to their flat splits.
+  Linear/avgpool layers fall back to their flat splits.  A
+  squeeze-and-excitation block (``fusion.se_cut``) is banded too: its pool,
+  a reduction over every band's own rows, and its two FCs, flat splits, cut
+  it between the depthwise conv and the gate, whose bands match the project
+  conv's (both are pointwise), so the depthwise band a worker keeps is the
+  one its gate scales.
 
 Beyond the three uniform modes, :func:`split_model_mixed` builds a
 *heterogeneous* plan: a different mode (and optionally a different worker
@@ -46,7 +51,7 @@ import dataclasses
 import numpy as np
 
 from .allocation import band_bounds
-from .fusion import FusedBlock, group_blocks
+from .fusion import FusedBlock, group_blocks, se_cut
 from .reinterpret import LayerSpec, ReinterpretedModel, macs_for_positions
 
 MODES = ("neuron", "kernel", "spatial")
@@ -134,9 +139,15 @@ def partition_bounds(total: int, ratings: np.ndarray) -> np.ndarray:
     return band_bounds(ratings, total)
 
 
+# layers split over their (C, H, W) flat output: a gate's output is the
+# gated activation's, channel for channel
+_FLAT_CHW = ("conv", "dwconv", "gate")
+
+
 def split_conv_layer(layer: LayerSpec, ratings: np.ndarray) -> LayerSplit:
-    """Algorithm 1: split a conv/dwconv layer across workers kernel-wise."""
-    if layer.kind not in ("conv", "dwconv"):
+    """Algorithm 1: split a conv/dwconv layer across workers kernel-wise (a
+    gate, which holds no weights, the same way)."""
+    if layer.kind not in _FLAT_CHW:
         raise ValueError(f"not a conv layer: {layer.kind}")
     c, h, w = layer.out_shape
     hw = h * w
@@ -177,7 +188,7 @@ def split_linear_layer(layer: LayerSpec, ratings: np.ndarray) -> LayerSplit:
 def split_conv_layer_kernel(layer: LayerSpec, ratings: np.ndarray) -> LayerSplit:
     """Strict kernel-wise split: contiguous *whole-channel* spans per worker
     (Alg. 1 without mid-channel boundaries — no kernel duplication)."""
-    if layer.kind not in ("conv", "dwconv"):
+    if layer.kind not in _FLAT_CHW:
         raise ValueError(f"not a conv layer: {layer.kind}")
     c, h, w = layer.out_shape
     hw = h * w
@@ -194,7 +205,7 @@ def split_conv_layer_kernel(layer: LayerSpec, ratings: np.ndarray) -> LayerSplit
 
 def split_layer(layer: LayerSpec, ratings: np.ndarray,
                 mode: str = "neuron") -> LayerSplit:
-    if layer.kind in ("conv", "dwconv"):
+    if layer.kind in _FLAT_CHW:
         if mode == "kernel":
             return split_conv_layer_kernel(layer, ratings)
         return split_conv_layer(layer, ratings)
@@ -236,28 +247,63 @@ def split_block_spatial(layers: list[LayerSpec],
             bands[li][w] = (r_lo, r_hi, in_lo, in_hi)
             # the upstream stage must produce this stage's input window
             r_lo, r_hi = in_lo, in_hi
-    splits: list[LayerSplit] = []
-    for li, lyr in enumerate(layers):
-        c_out, _, w_out = lyr.out_shape
-        per_kernel_params = int(np.prod(lyr.weight.shape[1:])) if lyr.weight is not None else 0
-        shards: list[WorkerShard] = []
-        for w in range(n):
-            r_lo, r_hi, in_lo, in_hi = bands[li][w]
-            band_pos = (r_hi - r_lo) * w_out
-            if band_pos > 0:
-                usage = {c1: band_pos for c1 in range(c_out)}
-                # full weights + per-channel bias replicated on active workers
-                wbytes = c_out * per_kernel_params + c_out
-            else:
-                usage, wbytes = {}, 0
-            shards.append(SpatialShard(w, 0, 0, usage, wbytes,
-                                       row_lo=r_lo, row_hi=r_hi,
-                                       in_lo=in_lo, in_hi=in_hi,
-                                       out_channels=c_out, out_width=w_out))
-        splits.append(LayerSplit(lyr, shards, mode="spatial",
-                                 block_first=(li == 0),
-                                 block_last=(li == len(layers) - 1)))
-    return splits
+    return [_spatial_split(lyr, bands[li], li == 0, li == len(layers) - 1)
+            for li, lyr in enumerate(layers)]
+
+
+def _spatial_split(lyr: LayerSpec, bands, first: bool,
+                   last: bool) -> LayerSplit:
+    """The spatial LayerSplit of one stage from each worker's (row_lo,
+    row_hi, in_lo, in_hi)."""
+    c_out, _, w_out = lyr.out_shape
+    per_kernel_params = int(np.prod(lyr.weight.shape[1:])) if lyr.weight is not None else 0
+    shards: list[WorkerShard] = []
+    for w, (r_lo, r_hi, in_lo, in_hi) in enumerate(bands):
+        band_pos = (r_hi - r_lo) * w_out
+        if band_pos > 0:
+            usage = {c1: band_pos for c1 in range(c_out)}
+            # full weights + per-channel bias replicated on active workers
+            wbytes = c_out * per_kernel_params + c_out
+        else:
+            usage, wbytes = {}, 0
+        shards.append(SpatialShard(w, 0, 0, usage, wbytes,
+                                   row_lo=r_lo, row_hi=r_hi,
+                                   in_lo=in_lo, in_hi=in_hi,
+                                   out_channels=c_out, out_width=w_out))
+    return LayerSplit(lyr, shards, mode="spatial", block_first=first,
+                      block_last=last)
+
+
+def split_se_block_spatial(model: ReinterpretedModel, indices,
+                           ratings: np.ndarray) -> list[LayerSplit]:
+    """Spatial split of a squeeze-and-excitation block (``fusion.se_cut``),
+    in the order of ``indices``.
+
+    The banded stages (the expand and depthwise convs, the gate and the
+    project conv) are split as one fused block by the project conv's output
+    bands; the gate, pointwise like the project, takes the project's bands
+    as both its output and its input rows.  The pool and the two FCs get
+    their flat splits.  The banded stages before the cut download nothing
+    after the first and upload nothing; the gate downloads its gate vector
+    (``block_first``) against the band its worker kept, and the project
+    uploads the block's output."""
+    cut = se_cut(model, tuple(indices))
+    conv_idx = [i for i in indices if i not in cut.reduce and i != cut.gate]
+    conv_splits = split_block_spatial([model.layers[i] for i in conv_idx],
+                                      ratings)
+    by_idx = dict(zip(conv_idx, conv_splits))
+    for i in conv_idx:
+        sp = by_idx[i]
+        by_idx[i] = dataclasses.replace(
+            sp, block_first=(i == indices[0]), block_last=(i == cut.project))
+    proj = by_idx[cut.project]
+    by_idx[cut.gate] = _spatial_split(
+        model.layers[cut.gate],
+        [(s.row_lo, s.row_hi, s.row_lo, s.row_hi) for s in proj.shards],
+        True, False)
+    for i in cut.reduce:
+        by_idx[i] = split_layer(model.layers[i], ratings)
+    return [by_idx[i] for i in indices]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -443,7 +489,12 @@ def split_model(model: ReinterpretedModel, ratings,
     blocks: list[tuple[int, ...]] = []
     for block in grouping:
         layers = [model.layers[i] for i in block.indices]
-        if all(lyr.kind in ("conv", "dwconv") for lyr in layers):
+        if se_cut(model, block.indices) is not None:
+            for idx, sp in zip(block.indices, split_se_block_spatial(
+                    model, block.indices, ratings)):
+                splits_by_idx[idx] = sp
+            blocks.append(tuple(block.indices))
+        elif all(lyr.kind in ("conv", "dwconv") for lyr in layers):
             for idx, sp in zip(block.indices, split_block_spatial(layers, ratings)):
                 splits_by_idx[idx] = sp
             blocks.append(tuple(block.indices))
@@ -456,6 +507,16 @@ def split_model(model: ReinterpretedModel, ratings,
     splits = [splits_by_idx[i] for i in range(len(model.layers))]
     return SplitPlan(model=model, splits=splits, ratings=ratings,
                      mode="spatial", blocks=tuple(blocks))
+
+
+def refuse_gates(model: ReinterpretedModel, what: str) -> None:
+    """Raise for a model with a squeeze-and-excitation gate in a path that
+    does not carry one yet (``what`` names the path)."""
+    for lyr in model.layers:
+        if lyr.kind == "gate":
+            raise NotImplementedError(
+                f"{what} does not run gate layers yet: layer {lyr.name} "
+                f"scales {lyr.gate_from!r} (squeeze-and-excitation)")
 
 
 def _masked_ratings(ratings: np.ndarray,
@@ -503,6 +564,7 @@ def split_model_mixed(model: ReinterpretedModel, ratings,
     execution stays bit-exact across every mode seam (tested in
     ``tests/test_mixed.py``).
     """
+    refuse_gates(model, "split_model_mixed")
     ratings = np.asarray(ratings, dtype=np.float64)
     grouping = group_blocks(model)
     assignment = tuple(assignment)

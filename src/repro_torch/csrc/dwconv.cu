@@ -54,6 +54,23 @@
 // - stores: 4 int8 outputs as one 32-bit store, 4 float outputs as one
 //   16-byte store, wherever the 4 are owned and aligned; else one by one.
 // The host picks the tiles (kernels/dwconv/dwconv.py: dwconv_schedule).
+//
+// The same body serves the 5x5 depthwise convs of EfficientNet
+// (dwconv5x5_kernel, K = 5, pad 2): each row's 5 taps are packed in two
+// words, taps 0..3 and tap 4 alone, so an output is two __dp4a a row, the
+// second against the window's byte 4 (the other three bytes meet zero
+// taps).  Its window is 8 bytes at stride 1 and 11 at stride 2, still read
+// as aligned words from the staged run.  It keeps 4 CTAs an SM (64
+// registers), the 3x3 kernel 8.
+//
+// Activations: relu and relu6 are the clamp; swish and sigmoid (ACT =
+// kSwish, kSigmoid) follow the epilogue's multiply with
+// s = __fdiv_rn(1, __fadd_rn(1, expf(-v))) and, for swish, __fmul_rn(v, s):
+// the accurate expf (no fast-math intrinsic; the build passes no
+// --use_fast_math), a correctly rounded add and division, one rounded
+// multiply.  The plain version (core/fusion.py: sigmoid) forms the same
+// expression with torch.exp, so on the card both round alike wherever
+// torch's exp and expf agree.
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,7 +85,11 @@ constexpr int VEC = 4;
 constexpr int MAX_SHARDS = 64;
 constexpr int PAD = 16;  // bytes before and after the slabs (word reads)
 
-enum Activation { kNone = 0, kRelu = 1, kRelu6 = 2 };
+enum Activation { kNone = 0, kRelu = 1, kRelu6 = 2, kSwish = 3,
+                  kSigmoid = 4 };
+// how an epilogue applies its activation: the clamp (none, relu, relu6),
+// or one of the two functions of expf
+enum ActForm { kClamp = 0, kSwishForm = 1, kSigmoidForm = 2 };
 
 // n / d for 0 <= n < 2^31 by multiply-high (the Granlund-Montgomery magic
 // number, as CUTLASS's FastDivmod computes it); set up on the host
@@ -114,9 +135,16 @@ __device__ __forceinline__ uint32_t bytes_below(int n) {
   return n <= 0 ? 0u : n >= 4 ? 0xffffffffu : (1u << (8 * n)) - 1u;
 }
 
-template <int S, bool INT_BIAS, bool OUT_I8>
-__global__ void __launch_bounds__(THREADS, MIN_CTAS_PER_SM)
-    dwconv3x3_kernel(const __grid_constant__ Params p) {
+template <int ACT>
+__device__ __forceinline__ float activate(float v, const Params& p) {
+  if (ACT == kClamp) return fminf(fmaxf(v, p.act_lo), p.act_hi);
+  // accurate expf, correctly rounded add and division (see the header)
+  const float sg = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v)));
+  return ACT == kSwishForm ? __fmul_rn(v, sg) : sg;
+}
+
+template <int K, int S, bool INT_BIAS, bool OUT_I8, int ACT>
+__device__ __forceinline__ void dwconv_tile(const Params& p) {
   extern __shared__ __align__(16) int8_t smem[];
   const int nb = blockIdx.y;
   int t = blockIdx.x;
@@ -146,7 +174,7 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS_PER_SM)
 
   // input rows lo..hi (inclusive) of the tile, clipped to the input
   const int lo = max(r0 * S - p.ph, 0);
-  const int hi = min((r0 + nr - 1) * S - p.ph + 2, p.H - 1);
+  const int hi = min((r0 + nr - 1) * S - p.ph + K - 1, p.H - 1);
   const int run = (hi - lo + 1) * p.W;
   const long long plane = static_cast<long long>(p.H) * p.W;
   const int8_t* src0 =
@@ -174,12 +202,20 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS_PER_SM)
                           left >= 16 ? 16 : (left > 0 ? left : 0));
   }
   tile_copy::cp_commit();
-  // each row's 3 taps packed in the low 3 bytes of a word
-  for (int e = threadIdx.x; e < nc * 3; e += THREADS) {
-    const int8_t* g = p.w + c0 * 9 + e * 3;
-    wk[e] = static_cast<uint8_t>(g[0]) |
-            static_cast<uint32_t>(static_cast<uint8_t>(g[1])) << 8 |
-            static_cast<uint32_t>(static_cast<uint8_t>(g[2])) << 16;
+  // each row's taps packed in tap_words<K>() words: the low 3 bytes of one
+  // (K = 3), or 4 bytes and then the fifth alone (K = 5)
+  for (int e = threadIdx.x; e < nc * K; e += THREADS) {
+    const int8_t* g = p.w + c0 * K * K + e * K;
+    uint32_t lo = static_cast<uint8_t>(g[0]) |
+                  static_cast<uint32_t>(static_cast<uint8_t>(g[1])) << 8 |
+                  static_cast<uint32_t>(static_cast<uint8_t>(g[2])) << 16;
+    if (K == 3) {
+      wk[e] = lo;
+    } else {
+      lo |= static_cast<uint32_t>(static_cast<uint8_t>(g[3])) << 24;
+      wk[2 * e] = lo;
+      wk[2 * e + 1] = static_cast<uint8_t>(g[4]);
+    }
   }
   for (int e = threadIdx.x; e < nc; e += THREADS) {
     ss[e] = p.scale[c0 + e];
@@ -212,7 +248,7 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS_PER_SM)
 #pragma unroll
     for (int u = 0; u < VEC; ++u) acc[u] = 0;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
+    for (int i = 0; i < K; ++i) {
       // a row outside the input adds nothing: its taps are zeroed and a
       // staged row is read in its place (no branch, so the masks above are
       // computed once)
@@ -225,6 +261,38 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS_PER_SM)
       // the window's bytes 0..11, taps outside the input zeroed
       const uint32_t u0 = __funnelshift_r(w0, w1, sh) & mask[0];
       const uint32_t u1 = __funnelshift_r(w1, w2, sh) & mask[1];
+      if (K == 5) {
+        // output u reads bytes b..b+4, b = u * S: taps 0..3 against the
+        // word at b, tap 4 against the low byte of the word at b + 4
+        const int ta = row_ok ? static_cast<int>(wk[(c * 5 + i) * 2]) : 0;
+        const int tb = row_ok ? static_cast<int>(wk[(c * 5 + i) * 2 + 1]) : 0;
+        if (S == 1) {
+          acc[0] = __dp4a(static_cast<int>(u0), ta, acc[0]);
+          acc[0] = __dp4a(static_cast<int>(u1), tb, acc[0]);
+          acc[1] = __dp4a(static_cast<int>(__funnelshift_r(u0, u1, 8)), ta,
+                          acc[1]);
+          acc[1] = __dp4a(static_cast<int>(u1 >> 8), tb, acc[1]);
+          acc[2] = __dp4a(static_cast<int>(__funnelshift_r(u0, u1, 16)), ta,
+                          acc[2]);
+          acc[2] = __dp4a(static_cast<int>(u1 >> 16), tb, acc[2]);
+          acc[3] = __dp4a(static_cast<int>(__funnelshift_r(u0, u1, 24)), ta,
+                          acc[3]);
+          acc[3] = __dp4a(static_cast<int>(u1 >> 24), tb, acc[3]);
+        } else {
+          const uint32_t u2 = __funnelshift_r(w2, wp[3], sh) & mask[2];
+          acc[0] = __dp4a(static_cast<int>(u0), ta, acc[0]);
+          acc[0] = __dp4a(static_cast<int>(u1), tb, acc[0]);
+          acc[1] = __dp4a(static_cast<int>(__funnelshift_r(u0, u1, 16)), ta,
+                          acc[1]);
+          acc[1] = __dp4a(static_cast<int>(u1 >> 16), tb, acc[1]);
+          acc[2] = __dp4a(static_cast<int>(u1), ta, acc[2]);
+          acc[2] = __dp4a(static_cast<int>(u2), tb, acc[2]);
+          acc[3] = __dp4a(static_cast<int>(__funnelshift_r(u1, u2, 16)), ta,
+                          acc[3]);
+          acc[3] = __dp4a(static_cast<int>(u2 >> 16), tb, acc[3]);
+        }
+        continue;
+      }
       const int tap = row_ok ? static_cast<int>(wk[c * 3 + i]) : 0;
       if (S == 1) {
         acc[0] = __dp4a(static_cast<int>(u0), tap, acc[0]);
@@ -258,7 +326,7 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS_PER_SM)
         v = __fadd_rn(__fmul_rn(__int2float_rn(acc[u]), sc),
                       __int_as_float(bq));
       }
-      y[u] = fminf(fmaxf(v, p.act_lo), p.act_hi);
+      y[u] = activate<ACT>(v, p);
     }
     const long long o = static_cast<long long>(nb) * p.out_stride + dst +
                         (pos0 - start);
@@ -299,9 +367,25 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS_PER_SM)
   }
 }
 
-template <int S, bool INT_BIAS, bool OUT_I8>
+template <int S, bool INT_BIAS, bool OUT_I8, int ACT>
+__global__ void __launch_bounds__(THREADS, MIN_CTAS_PER_SM)
+    dwconv3x3_kernel(const __grid_constant__ Params p) {
+  dwconv_tile<3, S, INT_BIAS, OUT_I8, ACT>(p);
+}
+
+template <int S, bool INT_BIAS, bool OUT_I8, int ACT>
+__global__ void __launch_bounds__(THREADS, MIN_CTAS_PER_SM / 2)
+    dwconv5x5_kernel(const __grid_constant__ Params p) {
+  dwconv_tile<5, S, INT_BIAS, OUT_I8, ACT>(p);
+}
+
+template <int K, int S, bool INT_BIAS, bool OUT_I8, int ACT>
 cudaError_t launch(const Params& p, dim3 grid, int smem, cudaStream_t stream) {
-  auto kernel = dwconv3x3_kernel<S, INT_BIAS, OUT_I8>;
+  void (*kernel)(const Params);
+  if constexpr (K == 3)
+    kernel = dwconv3x3_kernel<S, INT_BIAS, OUT_I8, ACT>;
+  else
+    kernel = dwconv5x5_kernel<S, INT_BIAS, OUT_I8, ACT>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -311,30 +395,48 @@ cudaError_t launch(const Params& p, dim3 grid, int smem, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int S>
-cudaError_t dispatch(const Params& p, int int_bias, int out_i8, dim3 grid,
-                     int smem, cudaStream_t st) {
-  if (int_bias && out_i8) return launch<S, true, true>(p, grid, smem, st);
-  if (int_bias) return launch<S, true, false>(p, grid, smem, st);
-  if (out_i8) return launch<S, false, true>(p, grid, smem, st);
-  return launch<S, false, false>(p, grid, smem, st);
+template <int K, int S, int ACT>
+cudaError_t dispatch_epilogue(const Params& p, int int_bias, int out_i8,
+                              dim3 grid, int smem, cudaStream_t st) {
+  if (int_bias && out_i8)
+    return launch<K, S, true, true, ACT>(p, grid, smem, st);
+  if (int_bias) return launch<K, S, true, false, ACT>(p, grid, smem, st);
+  if (out_i8) return launch<K, S, false, true, ACT>(p, grid, smem, st);
+  return launch<K, S, false, false, ACT>(p, grid, smem, st);
+}
+
+template <int K, int S>
+cudaError_t dispatch(const Params& p, int int_bias, int out_i8, int act,
+                     dim3 grid, int smem, cudaStream_t st) {
+  if (act == kSwish)
+    return dispatch_epilogue<K, S, kSwishForm>(p, int_bias, out_i8, grid,
+                                               smem, st);
+  if (act == kSigmoid)
+    return dispatch_epilogue<K, S, kSigmoidForm>(p, int_bias, out_i8, grid,
+                                                 smem, st);
+  return dispatch_epilogue<K, S, kClamp>(p, int_bias, out_i8, grid, smem, st);
 }
 
 }  // namespace
 
-// The shared memory a launch needs: PAD, c_tile slabs, PAD, then each
-// channel's scale, bias and 3 packed tap words.
-extern "C" int dwconv_smem_bytes(int c_tile, int slab) {
-  return 2 * PAD + c_tile * (slab + 4 + 4 + 12);
+// The shared memory a launch of a KxK kernel needs: PAD, c_tile slabs,
+// PAD, then each channel's scale, bias and K rows of packed tap words.
+extern "C" int dwconv_smem_bytes_k(int c_tile, int slab, int k) {
+  return 2 * PAD + c_tile * (slab + 4 + 4 + 4 * k * (k == 3 ? 1 : 2));
 }
 
-extern "C" int dwconv3x3_s8(const void* x, const void* w, const void* scale,
-                            const void* bias, void* out, const int* shards,
-                            int n_shards, int NB, int C, int H, int W, int ph,
-                            int pw, int stride, int c_tile, int rows_tile,
-                            int slab, int tiles, long long out_stride,
-                            int int_bias, int out_i8, int act,
-                            float inv_out_scale, void* stream) {
+extern "C" int dwconv_smem_bytes(int c_tile, int slab) {
+  return dwconv_smem_bytes_k(c_tile, slab, 3);
+}
+
+// One launch of the KxK kernel (k 3 or 5).
+extern "C" int dwconv_s8(const void* x, const void* w, const void* scale,
+                         const void* bias, void* out, const int* shards,
+                         int n_shards, int NB, int C, int H, int W, int ph,
+                         int pw, int k, int stride, int c_tile, int rows_tile,
+                         int slab, int tiles, long long out_stride,
+                         int int_bias, int out_i8, int act,
+                         float inv_out_scale, void* stream) {
   Params p;
   p.x = static_cast<const int8_t*>(x);
   p.w = static_cast<const int8_t*>(w);
@@ -346,8 +448,8 @@ extern "C" int dwconv3x3_s8(const void* x, const void* w, const void* scale,
   p.W = W;
   p.ph = ph;
   p.pw = pw;
-  p.oh = (H + 2 * ph - 3) / stride + 1;
-  p.ow = (W + 2 * pw - 3) / stride + 1;
+  p.oh = (H + 2 * ph - k) / stride + 1;
+  p.ow = (W + 2 * pw - k) / stride + 1;
   p.n_seg = (p.ow + VEC - 1) / VEC;
   p.plane16 = static_cast<int>((static_cast<long long>(H) * W) & 15);
   p.c_tile = c_tile;
@@ -359,11 +461,12 @@ extern "C" int dwconv3x3_s8(const void* x, const void* w, const void* scale,
   p.by_chunks.init(slab / 16);
   p.by_rt.init(p.n_rt);
   p.out_stride = out_stride;
-  p.act_lo = act == kNone ? -INFINITY : 0.f;
+  p.act_lo = act == kRelu || act == kRelu6 ? 0.f : -INFINITY;
   p.act_hi = act == kRelu6 ? 6.f : INFINITY;
   p.inv_out_scale = inv_out_scale;
   p.n_shards = shards == nullptr ? 0 : n_shards;
-  if (p.n_shards > MAX_SHARDS || slab % 16 != 0 || NB > 65535)
+  if (p.n_shards > MAX_SHARDS || slab % 16 != 0 || NB > 65535 ||
+      (k != 3 && k != 5))
     return cudaErrorInvalidValue;
   int n_tiles = p.n_shards == 0 ? (C + c_tile - 1) / c_tile * p.n_rt : 0;
   for (int z = 0; z < p.n_shards; ++z) {
@@ -375,11 +478,16 @@ extern "C" int dwconv3x3_s8(const void* x, const void* w, const void* scale,
   p.tile0[p.n_shards] = n_tiles;
   if (n_tiles != tiles) return cudaErrorInvalidValue;
   const dim3 grid(tiles, NB);
-  const int smem = dwconv_smem_bytes(c_tile, slab);
+  const int smem = dwconv_smem_bytes_k(c_tile, slab, k);
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      stride == 1 ? dispatch<1>(p, int_bias, out_i8, grid, smem, st)
-                  : dispatch<2>(p, int_bias, out_i8, grid, smem, st));
+  cudaError_t err;
+  if (k == 3)
+    err = stride == 1 ? dispatch<3, 1>(p, int_bias, out_i8, act, grid, smem, st)
+                      : dispatch<3, 2>(p, int_bias, out_i8, act, grid, smem, st);
+  else
+    err = stride == 1 ? dispatch<5, 1>(p, int_bias, out_i8, act, grid, smem, st)
+                      : dispatch<5, 2>(p, int_bias, out_i8, act, grid, smem, st);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* dwconv_error_string(int status) {

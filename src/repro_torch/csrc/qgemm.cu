@@ -6,6 +6,7 @@
 // either the bit-exact int path
 //     y = f32(acc + b_q) * scale[n]                 (int32 bias, multiply only)
 // or the real-domain path y = f32(acc) * scale[n] + bias[n], then relu/relu6
+// (or swish / sigmoid, formed with the accurate expf: core/quantize.py)
 // and optionally q = clip(rint(y * inv_out_scale), -127, 127) as int8.
 //
 // What bounds it on the H100: the main path's shapes are 1x1 convs and
@@ -56,7 +57,8 @@ constexpr int PITCH = BK + 16;
 constexpr int STAGES = 3;
 constexpr int THREADS = 128;
 
-enum Activation { kNone = 0, kRelu = 1, kRelu6 = 2 };
+enum Activation { kNone = 0, kRelu = 1, kRelu6 = 2, kSwish = 3,
+                  kSigmoid = 4 };
 
 struct Args {
   const int8_t* x;      // x[m * ldx + k]
@@ -96,7 +98,9 @@ __device__ __forceinline__ void stage_rows(int8_t (*dst)[PITCH],
   }
 }
 
-template <int BM, bool ALIGNED, bool INT_BIAS, bool OUT_I8>
+// EXP: the epilogue may apply swish or sigmoid (an instance of its own,
+// so the relu and relu6 instances carry no expf code)
+template <int BM, bool ALIGNED, bool INT_BIAS, bool OUT_I8, bool EXP>
 __global__ void __launch_bounds__(THREADS)
 qgemm_kernel(Args a) {
   constexpr int WARPS_M = BM == 16 ? 1 : 2;
@@ -243,6 +247,12 @@ qgemm_kernel(Args a) {
             y = fmaxf(y, 0.f);
           } else if (a.act == kRelu6) {
             y = fminf(fmaxf(y, 0.f), 6.f);
+          } else if (EXP && a.act >= kSwish) {
+            // sigmoid(y) = 1 / (1 + expf(-y)): the accurate expf (no
+            // fast-math intrinsic), a correctly rounded add and division;
+            // swish multiplies y by it once (core/fusion.py: sigmoid)
+            const float sg = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-y)));
+            y = a.act == kSwish ? __fmul_rn(y, sg) : sg;
           }
           if (OUT_I8) {
             // rintf rounds half to even, as torch.round and jnp.round do
@@ -277,23 +287,33 @@ qgemm_kernel(Args a) {
   }
 }
 
-template <int BM, bool ALIGNED, bool INT_BIAS, bool OUT_I8>
+template <int BM, bool ALIGNED, bool INT_BIAS, bool OUT_I8, bool EXP>
 void launch(const Args& a, int splits, cudaStream_t st) {
   const dim3 grid((a.M + BM - 1) / BM, (a.N + BN - 1) / BN, splits);
-  qgemm_kernel<BM, ALIGNED, INT_BIAS, OUT_I8><<<grid, THREADS, 0, st>>>(a);
+  qgemm_kernel<BM, ALIGNED, INT_BIAS, OUT_I8, EXP>
+      <<<grid, THREADS, 0, st>>>(a);
 }
 
-template <int BM, bool ALIGNED>
+template <int BM, bool ALIGNED, bool EXP>
 void launch_epilogue(const Args& a, int splits, bool int_bias, bool out_i8,
                      cudaStream_t st) {
   if (int_bias && out_i8)
-    launch<BM, ALIGNED, true, true>(a, splits, st);
+    launch<BM, ALIGNED, true, true, EXP>(a, splits, st);
   else if (int_bias)
-    launch<BM, ALIGNED, true, false>(a, splits, st);
+    launch<BM, ALIGNED, true, false, EXP>(a, splits, st);
   else if (out_i8)
-    launch<BM, ALIGNED, false, true>(a, splits, st);
+    launch<BM, ALIGNED, false, true, EXP>(a, splits, st);
   else
-    launch<BM, ALIGNED, false, false>(a, splits, st);
+    launch<BM, ALIGNED, false, false, EXP>(a, splits, st);
+}
+
+template <int BM, bool ALIGNED>
+void launch_act(const Args& a, int splits, bool int_bias, bool out_i8,
+                cudaStream_t st) {
+  if (a.act >= kSwish)
+    launch_epilogue<BM, ALIGNED, true>(a, splits, int_bias, out_i8, st);
+  else
+    launch_epilogue<BM, ALIGNED, false>(a, splits, int_bias, out_i8, st);
 }
 
 }  // namespace
@@ -318,11 +338,11 @@ extern "C" int qgemm_s8(const void* x, const void* w, const void* scale,
   auto st = static_cast<cudaStream_t>(stream);
   const bool ib = int_bias != 0, o8 = out_i8 != 0;
   if (bm == 16)
-    aligned ? launch_epilogue<16, true>(a, splits, ib, o8, st)
-            : launch_epilogue<16, false>(a, splits, ib, o8, st);
+    aligned ? launch_act<16, true>(a, splits, ib, o8, st)
+            : launch_act<16, false>(a, splits, ib, o8, st);
   else
-    aligned ? launch_epilogue<64, true>(a, splits, ib, o8, st)
-            : launch_epilogue<64, false>(a, splits, ib, o8, st);
+    aligned ? launch_act<64, true>(a, splits, ib, o8, st)
+            : launch_act<64, false>(a, splits, ib, o8, st);
   return static_cast<int>(cudaGetLastError());
 }
 

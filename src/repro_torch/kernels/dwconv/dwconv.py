@@ -7,6 +7,11 @@ Port of the two TPU kernels in ``repro/kernels/dwconv/dwconv.py``:
 * :func:`dwconv3x3_bands` — a stack of spatial band windows
   (bands, C, R, W+2): the depthwise stage of every fused spatial block.
 
+The 5x5 depthwise convs of EfficientNet (pad 2) take the engine's two
+forms, :func:`dwconv5x5_shards` and :func:`dwconv5x5_bands_unpadded`, and
+launch the kernel's 5x5 instance (``dwconv5x5_kernel``; the 3x3 forms
+launch ``dwconv3x3_kernel``).
+
 One CUDA kernel serves both, and the port's engine reaches it through
 three forms that read the input unpadded and make the zero halo inside the
 kernel (``pad`` rows and columns on each side):
@@ -22,7 +27,8 @@ kernel (``pad`` rows and columns on each side):
   positions.
 
 The first and third count on ``dwconv3x3.launches``, the others on
-``dwconv3x3_bands.launches`` (a launch captured into a CUDA graph counts
+``dwconv3x3_bands.launches``; each 5x5 form counts on its own
+``.launches`` (a launch captured into a CUDA graph counts
 once, its replays do not).  A CPU tensor takes the plain version
 (:mod:`.ref`); a CUDA tensor launches the kernel or raises.
 
@@ -43,7 +49,7 @@ from .. import backend
 from .ref import (dwconv3x3_ref, dwconv_bands_unpadded_ref, dwconv_same_ref,
                   dwconv_shards_ref)
 
-_ACTIVATIONS = {None: 0, "relu": 1, "relu6": 2}
+_ACTIVATIONS = {None: 0, "relu": 1, "relu6": 2, "swish": 3, "sigmoid": 4}
 THREADS = 256            # threads of a CTA (as csrc/dwconv.cu)
 VEC = 4                  # adjacent outputs of a row a thread computes (too)
 SMEM_BUDGET = 24 * 1024  # staged bytes of a CTA (up to 8 CTAs an SM)
@@ -55,28 +61,29 @@ MAX_WINDOWS = 65535      # windows (grid y)
 MAX_SHARDS = 64          # shards of one launch (kernel parameter space)
 
 
-def out_size(h: int, w: int, stride: int, pad: tuple[int, int]
+def out_size(h: int, w: int, stride: int, pad: tuple[int, int], k: int = 3
              ) -> tuple[int, int]:
-    """Output rows and columns of a 3x3 conv over (h, w) with ``pad``."""
+    """Output rows and columns of a kxk conv over (h, w) with ``pad``."""
     ph, pw = pad
-    return (h + 2 * ph - 3) // stride + 1, (w + 2 * pw - 3) // stride + 1
+    return (h + 2 * ph - k) // stride + 1, (w + 2 * pw - k) // stride + 1
 
 
-def slab_bytes(rows_tile: int, h: int, w: int, stride: int) -> int:
+def slab_bytes(rows_tile: int, h: int, w: int, stride: int, k: int = 3) -> int:
     """Shared-memory bytes of one channel's staged rows: the input rows of
     ``rows_tile`` output rows (at most ``h``), copied as the 16-byte-aligned
     chunks that hold them (a run starts at any byte, so up to 15 bytes
     more)."""
-    run = min((rows_tile - 1) * stride + 3, h) * w
+    run = min((rows_tile - 1) * stride + k, h) * w
     return 16 * -(-(run + 15) // 16)
 
 
-def smem_bytes(c_tile: int, slab: int) -> int:
-    """A CTA's dynamic shared memory (``dwconv_smem_bytes`` in the source):
-    the channels' slabs between 16 bytes of padding on each side (a tap's
-    word read may reach past them), then each channel's f32 scale, 32-bit
-    bias and 3 words of packed taps."""
-    return 32 + c_tile * (slab + 20)
+def smem_bytes(c_tile: int, slab: int, k: int = 3) -> int:
+    """A CTA's dynamic shared memory (``dwconv_smem_bytes_k`` in the
+    source): the channels' slabs between 16 bytes of padding on each side
+    (a tap's word read may reach past them), then each channel's f32 scale,
+    32-bit bias and k rows of packed taps (one word a row at 3x3, two at
+    5x5)."""
+    return 32 + c_tile * (slab + 8 + 4 * k * (1 if k == 3 else 2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,8 +105,8 @@ def _tiles(spans, c_tile: int, n_rt: int) -> int:
 
 
 def dwconv_schedule(nb: int, spans, h: int, w: int, stride: int,
-                    pad: tuple[int, int] = (1, 1), n_sm: int = 132
-                    ) -> DwSchedule:
+                    pad: tuple[int, int] = (1, 1), n_sm: int = 132,
+                    k: int = 3) -> DwSchedule:
     """Tile of a launch over ``nb`` windows of (C, h, w) unpadded input,
     cut into shards of ``spans`` channels each (one span of all C for an
     unsharded call).
@@ -113,9 +120,9 @@ def dwconv_schedule(nb: int, spans, h: int, w: int, stride: int,
     spans = [int(n) for n in spans]
     if not spans or min(spans) < 1:
         raise ValueError(f"dwconv shard spans {spans}")
-    oh, ow = out_size(h, w, stride, pad)
+    oh, ow = out_size(h, w, stride, pad, k)
     if oh < 1 or ow < 1:
-        raise ValueError(f"dwconv input {h}x{w} below the 3x3 window")
+        raise ValueError(f"dwconv input {h}x{w} below the {k}x{k} window")
     n_seg = -(-ow // VEC)
     per_plane = oh * n_seg
     if per_plane >= TARGET_ITEMS:
@@ -125,7 +132,7 @@ def dwconv_schedule(nb: int, spans, h: int, w: int, stride: int,
         rows_tile = oh
 
     def smem(c, r):
-        return smem_bytes(c, slab_bytes(r, h, w, stride))
+        return smem_bytes(c, slab_bytes(r, h, w, stride, k), k)
 
     while c_tile > 1 and smem(c_tile, rows_tile) > SMEM_BUDGET:
         c_tile = -(-c_tile // 2)
@@ -145,9 +152,9 @@ def dwconv_schedule(nb: int, spans, h: int, w: int, stride: int,
             rows_tile = -(-rows_tile // 2)
         else:
             break
-    slab = slab_bytes(rows_tile, h, w, stride)
+    slab = slab_bytes(rows_tile, h, w, stride, k)
     tiles = _tiles(spans, c_tile, -(-oh // rows_tile))
-    return DwSchedule(c_tile, rows_tile, slab, smem_bytes(c_tile, slab),
+    return DwSchedule(c_tile, rows_tile, slab, smem_bytes(c_tile, slab, k),
                       tiles, nb * tiles)
 
 
@@ -241,9 +248,9 @@ def shard_table(shards) -> ShardTable:
 
 @functools.cache
 def _entry():
-    fn = backend.library("dwconv").dwconv3x3_s8
+    fn = backend.library("dwconv").dwconv_s8
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([p] * 5 + [ctypes.POINTER(i)] + [i] * 12
+    fn.argtypes = ([p] * 5 + [ctypes.POINTER(i)] + [i] * 13
                    + [ctypes.c_longlong, i, i, i, ctypes.c_float, p])
     fn.restype = ctypes.c_int
     return fn
@@ -257,7 +264,8 @@ def _launch(wrapper, x, w, scale, bias, stride, activation, out_scale,
     ``MAX_SHARDS`` shards takes one launch per ``MAX_SHARDS``
     (:func:`split_table`), each writing its slice of the one output."""
     nb, c, h, wd = x.shape
-    oh, ow = out_size(h, wd, stride, pad)
+    k = w.shape[-1]
+    oh, ow = out_size(h, wd, stride, pad, k)
     out_i8 = out_scale is not None
     dtype = torch.int8 if out_i8 else torch.float32
     if table is None:
@@ -271,7 +279,7 @@ def _launch(wrapper, x, w, scale, bias, stride, activation, out_scale,
     if out.numel() == 0:
         return out
     n_sm = backend.sm_count(x.device)
-    scheds = [_schedule(nb, spans, h, wd, stride, tuple(pad), n_sm)
+    scheds = [_schedule(nb, spans, h, wd, stride, tuple(pad), n_sm, k)
               for _, spans in parts]
     tiles = max(sched.tiles for sched in scheds)
     if tiles > MAX_GRID or nb > MAX_WINDOWS:
@@ -285,25 +293,26 @@ def _launch(wrapper, x, w, scale, bias, stride, activation, out_scale,
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             out.data_ptr(), None if sub is None else sub.packed,
             0 if sub is None else len(sub.rows), nb, c, h, wd, pad[0],
-            pad[1], stride, sched.c_tile, sched.rows_tile, sched.slab,
+            pad[1], k, stride, sched.c_tile, sched.rows_tile, sched.slab,
             sched.tiles, per_window,
             int(not bias.dtype.is_floating_point), int(out_i8),
             _ACTIVATIONS[activation], inv, stream)
         wrapper.launches += 1
         backend.check("dwconv", status,
-                      f"dwconv3x3 NB={nb} C={c} H={h} W={wd} s={stride} "
+                      f"dwconv{k}x{k} NB={nb} C={c} H={h} W={wd} s={stride} "
                       f"pad={pad} shards={len(spans)}")
     return out
 
 
-def _check_args(x, w, scale, bias, stride, activation, ndims, pad=(0, 0)):
+def _check_args(x, w, scale, bias, stride, activation, ndims, pad=(0, 0),
+                k: int = 3):
     if x.dim() not in ndims:
         raise ValueError(f"dwconv input of rank {x.dim()} (want {ndims})")
     c = x.shape[-3]
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError("dwconv takes int8 x and w")
-    if tuple(w.shape) != (c, 3, 3):
-        raise ValueError(f"dwconv weight {tuple(w.shape)} != ({c}, 3, 3)")
+    if tuple(w.shape) != (c, k, k):
+        raise ValueError(f"dwconv weight {tuple(w.shape)} != ({c}, {k}, {k})")
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"scale/bias must be ({c},)")
     if scale.dtype != torch.float32 or bias.dtype not in (torch.float32,
@@ -311,9 +320,9 @@ def _check_args(x, w, scale, bias, stride, activation, ndims, pad=(0, 0)):
         raise TypeError("scale must be float32, bias float32 or int32")
     if stride not in (1, 2) or activation not in _ACTIVATIONS:
         raise ValueError(f"stride {stride} / activation {activation!r}")
-    if (x.shape[-2] + 2 * pad[0] < 3 or x.shape[-1] + 2 * pad[1] < 3
+    if (x.shape[-2] + 2 * pad[0] < k or x.shape[-1] + 2 * pad[1] < k
             or min(x.shape[-2:]) < 1):
-        raise ValueError(f"dwconv window {tuple(x.shape[-2:])} below 3x3")
+        raise ValueError(f"dwconv window {tuple(x.shape[-2:])} below {k}x{k}")
     devices = {t.device for t in (x, w, scale, bias)}
     if len(devices) != 1:
         raise ValueError(f"dwconv operands on several devices: {devices}")
@@ -336,6 +345,36 @@ def dwconv3x3(x_pad, w, scale, bias, *, stride: int = 1,
     out = _launch(dwconv3x3, x_pad[None] if single else x_pad, w, scale,
                   bias, stride, activation, out_scale, (0, 0))
     return out[0] if single else out
+
+
+def _shards(counter, k, x, table, w, scale, bias, stride, activation,
+            out_scale):
+    """A flat SAME kxk depthwise layer over its worker shards, counted on
+    ``counter`` (see :func:`dwconv3x3_shards`)."""
+    p = k // 2
+    _check_args(x, w, scale, bias, stride, activation, (4,), (p, p), k)
+    if max(c_hi for _, c_hi, *_ in table.rows) > x.shape[1]:
+        raise ValueError(f"shard table beyond {x.shape[1]} channels")
+    if x.device.type == "cpu":
+        return dwconv_shards_ref(x, table.rows, w, scale, bias,
+                                 stride=stride, activation=activation,
+                                 out_scale=out_scale)
+    return _launch(counter, x, w, scale, bias, stride, activation,
+                   out_scale, (p, p), table)
+
+
+def _bands_unpadded(counter, k, x_win, w, scale, bias, stride, activation,
+                    out_scale):
+    """Band windows (bands, C, R, W) of a kxk depthwise stage whose width is
+    not padded, counted on ``counter``."""
+    p = k // 2
+    _check_args(x_win, w, scale, bias, stride, activation, (4,), (0, p), k)
+    if x_win.device.type == "cpu":
+        return dwconv_bands_unpadded_ref(x_win, w, scale, bias,
+                                         stride=stride, activation=activation,
+                                         out_scale=out_scale)
+    return _launch(counter, x_win, w, scale, bias, stride, activation,
+                   out_scale, (0, p))
 
 
 def dwconv3x3_same(x, w, scale, bias, *, stride: int = 1,
@@ -365,15 +404,8 @@ def dwconv3x3_shards(x, table: ShardTable, w, scale, bias, *,
     reference's per-shard ``dwconv`` + slice + concatenate.  Counts one
     launch on ``dwconv3x3.launches`` for each ``MAX_SHARDS`` shards (a
     table of more takes ``ceil(shards / MAX_SHARDS)`` launches)."""
-    _check_args(x, w, scale, bias, stride, activation, (4,), (1, 1))
-    if max(c_hi for _, c_hi, *_ in table.rows) > x.shape[1]:
-        raise ValueError(f"shard table beyond {x.shape[1]} channels")
-    if x.device.type == "cpu":
-        return dwconv_shards_ref(x, table.rows, w, scale, bias,
-                                 stride=stride, activation=activation,
-                                 out_scale=out_scale)
-    return _launch(dwconv3x3, x, w, scale, bias, stride, activation,
-                   out_scale, (1, 1), table)
+    return _shards(dwconv3x3, 3, x, table, w, scale, bias, stride,
+                   activation, out_scale)
 
 
 def dwconv3x3_bands(x_win, w, scale, bias, *, stride: int = 1,
@@ -399,15 +431,30 @@ def dwconv3x3_bands_unpadded(x_win, w, scale, bias, *, stride: int = 1,
     """:func:`dwconv3x3_bands` over windows (bands, C, R, W) whose width is
     not padded: the kernel makes the zero column on each side.  Counts on
     ``dwconv3x3_bands.launches``."""
-    _check_args(x_win, w, scale, bias, stride, activation, (4,), (0, 1))
-    if x_win.device.type == "cpu":
-        return dwconv_bands_unpadded_ref(x_win, w, scale, bias,
-                                         stride=stride, activation=activation,
-                                         out_scale=out_scale)
-    return _launch(dwconv3x3_bands, x_win, w, scale, bias, stride,
-                   activation, out_scale, (0, 1))
+    return _bands_unpadded(dwconv3x3_bands, 3, x_win, w, scale, bias, stride,
+                           activation, out_scale)
 
 
-dwconv3x3.launches = 0
-dwconv3x3_bands.launches = 0
+def dwconv5x5_shards(x, table: ShardTable, w, scale, bias, *,
+                     stride: int = 1, activation: str | None = None,
+                     out_scale: float | None = None):
+    """:func:`dwconv3x3_shards` at 5x5 (pad 2), ``w`` (C, 5, 5); counts on
+    ``dwconv5x5_shards.launches``."""
+    return _shards(dwconv5x5_shards, 5, x, table, w, scale, bias, stride,
+                   activation, out_scale)
+
+
+def dwconv5x5_bands_unpadded(x_win, w, scale, bias, *, stride: int = 1,
+                             activation: str | None = None,
+                             out_scale: float | None = None):
+    """:func:`dwconv3x3_bands_unpadded` at 5x5: the kernel makes two zero
+    columns on each side.  Counts on ``dwconv5x5_bands_unpadded.launches``."""
+    return _bands_unpadded(dwconv5x5_bands_unpadded, 5, x_win, w, scale,
+                           bias, stride, activation, out_scale)
+
+
+dwconv3x3.launches = dwconv3x3_bands.launches = 0
+dwconv5x5_shards.launches = dwconv5x5_bands_unpadded.launches = 0
 dwconv3x3.kernels_per_launch = dwconv3x3_bands.kernels_per_launch = 1
+dwconv5x5_shards.kernels_per_launch = 1
+dwconv5x5_bands_unpadded.kernels_per_launch = 1

@@ -1,4 +1,5 @@
-"""Public wrappers for the depthwise conv kernel: SAME padding for 3x3.
+"""Public wrappers for the depthwise conv kernel: SAME padding for 3x3 (and,
+in the engine's two forms, 5x5: the weight's shape picks the kernel).
 
 Port of ``repro/kernels/dwconv/ops.py``, with the same contracts; each
 function also takes a leading batch axis.  The CUDA kernel masks the
@@ -12,7 +13,8 @@ from __future__ import annotations
 
 from .dwconv import (ShardTable, dwconv3x3, dwconv3x3_bands,
                      dwconv3x3_bands_unpadded, dwconv3x3_same,
-                     dwconv3x3_shards, shard_table)
+                     dwconv3x3_shards, dwconv5x5_bands_unpadded,
+                     dwconv5x5_shards, shard_table)
 
 __all__ = ["ShardTable", "dwconv", "dwconv_bands", "dwconv_bands_unpadded",
            "dwconv_shards", "dwconv_window", "shard_table"]
@@ -49,17 +51,21 @@ def dwconv_bands(x_win, w, scale, bias, *, stride: int = 1, activation=None,
 def dwconv_bands_unpadded(x_win, w, scale, bias, *, stride: int = 1,
                           activation=None, out_scale=None):
     """:func:`dwconv_bands` over windows (bands, C, R, W) whose width is not
-    padded yet: the kernel reads a zero column on each side."""
-    return dwconv3x3_bands_unpadded(x_win, w, scale, bias, stride=stride,
-                                    activation=activation,
-                                    out_scale=out_scale)
+    padded yet: the kernel reads k // 2 zero columns on each side (``w``:
+    (C, 3, 3) or (C, 5, 5))."""
+    fn = dwconv5x5_bands_unpadded if w.shape[-1] == 5 else \
+        dwconv3x3_bands_unpadded
+    return fn(x_win, w, scale, bias, stride=stride, activation=activation,
+              out_scale=out_scale)
 
 
 def dwconv_shards(x, shards: ShardTable, w, scale, bias, *, stride: int = 1,
                   activation=None, out_scale=None):
-    """A flat SAME 3x3 depthwise layer over all of its worker shards in one
-    launch: ``x`` is the layer's unpadded (B, C, H, W) input, ``shards`` its
-    :class:`ShardTable` (:func:`shard_table`).  Returns (B, positions): each
-    shard's flat output range, in shard order."""
-    return dwconv3x3_shards(x, shards, w, scale, bias, stride=stride,
-                            activation=activation, out_scale=out_scale)
+    """A flat SAME 3x3 (or, by ``w``'s shape, 5x5) depthwise layer over all
+    of its worker shards in one launch: ``x`` is the layer's unpadded
+    (B, C, H, W) input, ``shards`` its :class:`ShardTable`
+    (:func:`shard_table`).  Returns (B, positions): each shard's flat output
+    range, in shard order."""
+    fn = dwconv5x5_shards if w.shape[-1] == 5 else dwconv3x3_shards
+    return fn(x, shards, w, scale, bias, stride=stride,
+              activation=activation, out_scale=out_scale)

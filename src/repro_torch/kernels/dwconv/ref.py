@@ -1,4 +1,4 @@
-"""Plain torch version of the int8 3x3 depthwise conv kernel.
+"""Plain torch version of the int8 3x3 and 5x5 depthwise conv kernels.
 
 Port of ``repro/kernels/dwconv/ref.py``.  CUDA has no int32 convolution, so
 the accumulator is the shifted-product int32 sum of the reference's
@@ -40,9 +40,9 @@ def dwconv_acc_int32(x, w, stride):
 def dwconv3x3_ref(x_pad, w, scale, bias, *, stride: int = 1,
                   activation: str | None = None,
                   out_scale: float | None = None):
-    """x_pad: (C, H+2, W+2) or a stack (NB, C, R, W+2) int8, pre-padded;
-    w: (C, 3, 3) int8; bias: (C,) f32 (real-domain) or int32 (``b_q``,
-    added to the int32 accumulator)."""
+    """x_pad: (C, H+2p, W+2p) or a stack (NB, C, R, W+2p) int8, pre-padded;
+    w: (C, k, k) int8 (k 3 or 5, p = k // 2); bias: (C,) f32 (real-domain)
+    or int32 (``b_q``, added to the int32 accumulator)."""
     single = x_pad.dim() == 3
     xb = x_pad[None] if single else x_pad
     acc = dwconv_acc_int32(xb, w, (stride, stride))
@@ -52,15 +52,17 @@ def dwconv3x3_ref(x_pad, w, scale, bias, *, stride: int = 1,
 
 
 def dwconv_same_ref(x, w, scale, bias, **kw):
-    """SAME 3x3 depthwise conv of an unpadded (C, H, W) or (B, C, H, W)
-    input: pad by 1, then :func:`dwconv3x3_ref`."""
-    return dwconv3x3_ref(F.pad(x, (1, 1, 1, 1)), w, scale, bias, **kw)
+    """SAME kxk depthwise conv of an unpadded (C, H, W) or (B, C, H, W)
+    input: pad by k // 2, then :func:`dwconv3x3_ref`."""
+    p = w.shape[-1] // 2
+    return dwconv3x3_ref(F.pad(x, (p, p, p, p)), w, scale, bias, **kw)
 
 
 def dwconv_bands_unpadded_ref(x_win, w, scale, bias, **kw):
     """Band windows (NB, C, R, W) whose width is not padded: pad the width
-    by 1, then :func:`dwconv3x3_ref`."""
-    return dwconv3x3_ref(F.pad(x_win, (1, 1)), w, scale, bias, **kw)
+    by k // 2, then :func:`dwconv3x3_ref`."""
+    p = w.shape[-1] // 2
+    return dwconv3x3_ref(F.pad(x_win, (p, p)), w, scale, bias, **kw)
 
 
 def dwconv_shards_ref(x, shards, w, scale, bias, *, stride: int = 1,

@@ -28,7 +28,7 @@ from ...core.quantize import f32
 from .. import backend
 from .ref import qgemm_ref
 
-_ACTIVATIONS = {None: 0, "relu": 1, "relu6": 2}
+_ACTIVATIONS = {None: 0, "relu": 1, "relu6": 2, "swish": 3, "sigmoid": 4}
 BN = 64                 # output columns of a CTA's tile
 BK = 64                 # K bytes of one pipeline step
 TILE_M = (16, 64)       # tile heights the kernel is built for

@@ -53,7 +53,7 @@ from ..core.fusion import apply_activation
 from ..core.mapping import compile_shard_geometry
 from ..core.quantize import QuantizedModel, epilogue_params, requantize
 from ..core.simulator import _segments, pipelined_dependencies
-from ..core.splitting import SplitPlan, spatial_band_geometry
+from ..core.splitting import SplitPlan, refuse_gates, spatial_band_geometry
 from ..kernels.dwconv.ops import dwconv_window
 from ..kernels.qgemm.ops import qconv2d
 from ..kernels.qgemm.qgemm import qgemm
@@ -155,6 +155,7 @@ def build_worker_setup(split: SplitPlan, qmodel: QuantizedModel | None,
     if int8 and qmodel is None:
         raise ValueError("precision='int8' requires a QuantizedModel")
     model = split.model
+    refuse_gates(model, "the distributed runtime")
     segments: list[dict] = []
     arrays: dict[str, np.ndarray] = {}
     for gi, idxs in enumerate(split.block_groups):
@@ -606,6 +607,7 @@ def build_coordinator_plan(split: SplitPlan, qmodel: QuantizedModel | None,
     if int8 and qmodel is None:
         raise ValueError("precision='int8' requires a QuantizedModel")
     model = split.model
+    refuse_gates(model, "the distributed runtime")
     groups: list[GroupPlan] = []
     segs = _segments(split)
     assert list(segs) == list(split.block_groups), \

@@ -310,8 +310,11 @@ def test_dwconv_smem_layout_matches_schedule(cuda):
     from repro_torch.kernels import backend
     from repro_torch.kernels.dwconv.dwconv import smem_bytes
     fn = backend.library("dwconv").dwconv_smem_bytes
+    fn_k = backend.library("dwconv").dwconv_smem_bytes_k
     for c_tile, slab in ((1, 16), (7, 640), (32, 3152), (128, 48)):
         assert fn(c_tile, slab) == smem_bytes(c_tile, slab)
+        for k in (3, 5):
+            assert fn_k(c_tile, slab, k) == smem_bytes(c_tile, slab, k)
 
 
 @pytest.mark.parametrize("mode", ["kernel", "neuron", "spatial"])
@@ -1325,3 +1328,284 @@ def test_mesh_multi_card(cuda, tmp_path):
             torch.testing.assert_close(a, b, rtol=0, atol=bound)
         torch.testing.assert_close(r["logits"], r["single_logits"], rtol=0,
                                    atol=1e-5)
+
+
+# -- EfficientNet: swish and sigmoid epilogues, 5x5 depthwise, the
+# squeeze-and-excitation kernels, the engine --------------------------------
+
+EXP_ACTS = ("swish", "sigmoid")
+# the plain versions form sigmoid with torch.exp, the kernels with expf;
+# torch's exp may differ from expf in the last bit, which moves a
+# requantized code by one where it sits at a rounding tie: at most one code,
+# on at most this share of the codes.  On the H100 the kernels matched their
+# plain versions at every shape here (0 codes off); the same epilogues in
+# float16 put 0.04-0.17% of the codes one off, in bfloat16 0.2-0.8%, so a
+# kernel that computed them below float32 fails.
+EXP_CODE_SHARE = 1e-4
+# the whole network on the card against the CPU (torch's CPU exp against
+# expf, a one-code difference carried through the later layers)
+NET_CODE_SHARE = 1e-3
+
+
+def _assert_exp_codes(got, exp, limit=EXP_CODE_SHARE):
+    """int8 codes within one code, on at most ``limit`` of them."""
+    d = (got.to(torch.int32) - exp.to(torch.int32)).abs()
+    assert int(d.max()) <= 1
+    assert float((d > 0).float().mean()) <= limit
+
+
+def test_sigmoid_formula_matches_torch_sigmoid(cuda):
+    """The epilogue's ``1 / (1 + exp(-y))`` is torch's sigmoid within two
+    float32 ulps, and swish is y times it."""
+    from repro_torch.core.fusion import apply_activation
+    y = torch.linspace(-30, 30, 100_001, device=cuda)
+    torch.testing.assert_close(apply_activation(y, "sigmoid"),
+                               torch.sigmoid(y), rtol=2.5e-7, atol=1e-30)
+    torch.testing.assert_close(apply_activation(y, "swish"),
+                               y * torch.sigmoid(y), rtol=5e-7, atol=1e-30)
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 96, 4), (32, 4, 96), (37, 27, 32),
+                                   (300, 200, 129), (32, 1152, 48)])
+def test_qgemm_swish_sigmoid_vs_plain(cuda, m, k, n):
+    """qgemm's swish and sigmoid epilogues against the plain version on the
+    card: int8 within one code on a stated share, float32 within one
+    rounding."""
+    for int_bias in (True, False):
+        args = _gemm_inputs(np.random.default_rng(m + n), m, k, n, int_bias,
+                            cuda)
+        # spread the epilogue's real values over sigmoid's curved range
+        args[2] = args[2] * 400
+        for act in EXP_ACTS:
+            for osc in (None, 0.01 if act == "sigmoid" else 0.05):
+                got = qgemm(*args, activation=act, out_scale=osc)
+                exp = qgemm_ref(*args, activation=act, out_scale=osc)
+                torch.cuda.synchronize()
+                if osc is None:
+                    torch.testing.assert_close(got, exp, rtol=1e-6, atol=1e-7)
+                else:
+                    _assert_exp_codes(got, exp)
+
+
+def _dw_inputs_k(rng, c, k, dev, gain=1.0):
+    w = rng.integers(-127, 128, (c, k, k)).astype(np.int8)
+    s = (gain * rng.uniform(0.5, 1.5, c) / (127 * 127 * k)).astype(np.float32)
+    bq = rng.integers(-3000, 3000, c).astype(np.int32)
+    bf = rng.uniform(-1, 1, c).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (w, s, bq, bf)]
+
+
+# (batch, C, H, W, stride): EfficientNet-B0's flat 5x5 layers at 224 (b3,
+# b6, b11 at batch 2) and misaligned ones
+FLAT_SHAPES_5 = [(2, 144, 56, 56, 2), (2, 480, 14, 14, 1),
+                 (2, 1152, 7, 7, 1), (3, 7, 9, 3, 1), (2, 13, 6, 6, 2),
+                 (5, 11, 14, 14, 2), (2, 19, 29, 29, 1), (4, 33, 2, 2, 1),
+                 (2, 3, 1, 7, 2), (1, 5, 58, 58, 2)]
+# (windows, C, R, W, stride): band stacks of the spatial plan (b3, b11 at 8
+# bands) and misaligned ones
+BAND_SHAPES_5 = [(16, 144, 11, 56, 2), (16, 1152, 5, 7, 1),
+                 (7, 19, 9, 14, 1), (5, 13, 7, 29, 2), (3, 9, 5, 3, 1),
+                 (6, 7, 6, 6, 2), (2, 5, 5, 58, 1)]
+
+
+@pytest.mark.parametrize("cut", ["one", "kernel", "neuron"])
+@pytest.mark.parametrize("b,c,h,w,stride", FLAT_SHAPES_5)
+def test_dwconv5x5_shards_vs_plain(cuda, b, c, h, w, stride, cut):
+    """The 5x5 kernel over a flat layer's shards in one launch, pad 2: int8
+    bit-exact with the plain loop for the clamps, within one code on a
+    stated share for swish; float32 within one rounding."""
+    from repro_torch.kernels.dwconv.dwconv import dwconv5x5_shards
+    rng = np.random.default_rng(c * h + w + stride)
+    x = torch.from_numpy(rng.integers(-127, 128, (b, c, h, w))
+                         .astype(np.int8)).to(cuda)
+    wt, s, bq, bf = _dw_inputs_k(rng, c, 5, cuda)
+    hw = ((h - 1) // stride + 1) * ((w - 1) // stride + 1)
+    n = {"one": 1, "kernel": 8, "neuron": 8}[cut]
+    table = shard_table(_shards(c, hw, n, cut == "kernel", rng))
+    for bias, act, osc in ((bq, "relu6", 0.05), (bf, "relu", None),
+                           (bq, None, None), (bq, "swish", 0.02),
+                           (bf, "swish", None)):
+        before = dwconv5x5_shards.launches, dwconv3x3.launches
+        got = dwconv_shards(x, table, wt, s, bias, stride=stride,
+                            activation=act, out_scale=osc)
+        assert (dwconv5x5_shards.launches, dwconv3x3.launches) == (
+            before[0] + 1, before[1])
+        exp = dwconv_shards_ref(x, table.rows, wt, s, bias, stride=stride,
+                                activation=act, out_scale=osc)
+        torch.cuda.synchronize()
+        assert got.shape == (b, c * hw)
+        if act == "swish" and osc is not None:
+            _assert_exp_codes(got, exp)
+        else:
+            _assert_dw(got, exp, osc is not None or bias is bq)
+
+
+@pytest.mark.parametrize("nb,c,rows,w,stride", BAND_SHAPES_5)
+def test_dwconv5x5_bands_unpadded_vs_plain(cuda, nb, c, rows, w, stride):
+    """The 5x5 kernel over band windows whose width it pads by 2."""
+    from repro_torch.kernels.dwconv.dwconv import dwconv5x5_bands_unpadded
+    rng = np.random.default_rng(nb * c + w)
+    x = torch.from_numpy(rng.integers(-127, 128, (nb, c, rows, w))
+                         .astype(np.int8)).to(cuda)
+    wt, s, bq, bf = _dw_inputs_k(rng, c, 5, cuda)
+    xp = torch.nn.functional.pad(x, (2, 2))
+    for bias, act, osc in ((bq, "relu6", 0.05), (bf, "relu", None),
+                           (bq, "swish", 0.02)):
+        before = dwconv5x5_bands_unpadded.launches
+        got = dwconv_bands_unpadded(x, wt, s, bias, stride=stride,
+                                    activation=act, out_scale=osc)
+        assert dwconv5x5_bands_unpadded.launches == before + 1
+        exp = dwconv3x3_ref(xp, wt, s, bias, stride=stride, activation=act,
+                            out_scale=osc)
+        torch.cuda.synchronize()
+        if act == "swish":
+            _assert_exp_codes(got, exp)
+        else:
+            _assert_dw(got, exp, osc is not None)
+
+
+@pytest.mark.parametrize("act", EXP_ACTS)
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dwconv3x3_swish_sigmoid_vs_plain(cuda, stride, act):
+    """The 3x3 kernel's swish and sigmoid epilogues, band and flat forms."""
+    rng = np.random.default_rng(stride)
+    x = torch.from_numpy(rng.integers(-127, 128, (16, 96, 9, 56))
+                         .astype(np.int8)).to(cuda)
+    wt, s, bq, bf = _dw_inputs_k(rng, 96, 3, cuda, gain=300)
+    osc = 0.01 if act == "sigmoid" else 0.05
+    got = dwconv_bands_unpadded(x, wt, s, bq, stride=stride, activation=act,
+                                out_scale=osc)
+    exp = dwconv3x3_ref(torch.nn.functional.pad(x, (1, 1)), wt, s, bq,
+                        stride=stride, activation=act, out_scale=osc)
+    _assert_exp_codes(got, exp)
+    hw = ((9 - 1) // stride + 1) * ((56 - 1) // stride + 1)
+    table = shard_table(_shards(96, hw, 8, False, rng))
+    for bias, o in ((bq, osc), (bf, None)):
+        got = dwconv_shards(x, table, wt, s, bias, stride=stride,
+                            activation=act, out_scale=o)
+        exp = dwconv_shards_ref(x, table.rows, wt, s, bias, stride=stride,
+                                activation=act, out_scale=o)
+        if o is None:
+            torch.testing.assert_close(got, exp, rtol=1e-6, atol=1e-7)
+        else:
+            _assert_exp_codes(got, exp)
+
+
+# (samples, bands, C, R, W): EfficientNet-B0's band stacks at 224 (b0, b4,
+# b15 over 8 bands, one band each = a flat layer) and misaligned planes
+SE_SHAPES = [(4, 8, 32, 15, 112), (4, 8, 240, 4, 28), (32, 8, 1152, 1, 7),
+             (3, 1, 96, 56, 56), (2, 1, 1152, 7, 7), (5, 3, 7, 5, 3),
+             (1, 8, 13, 2, 9), (2, 5, 2049, 3, 5), (7, 2, 3, 1, 1)]
+
+
+@pytest.mark.parametrize("bsz,bands,c,r,w", SE_SHAPES)
+def test_se_pool_vs_plain(cuda, bsz, bands, c, r, w):
+    """The pool over every band's own rows: bit-exact with the plain sum,
+    for bands that own all, some or none of their rows."""
+    from repro_torch.kernels.se import se_pool
+    from repro_torch.kernels.se.ref import se_pool_ref
+    rng = np.random.default_rng(bsz * c + r)
+    x = torch.from_numpy(rng.integers(-127, 128, (bsz * bands, c, r, w))
+                         .astype(np.int8)).to(cuda)
+    for rows in ((r,) * bands, tuple(int(v) for v in
+                                     rng.integers(0, r + 1, bands))):
+        before = se_pool.launches
+        got = se_pool(x, rows, 0.01)
+        assert se_pool.launches == before + 1
+        assert torch.equal(got, se_pool_ref(x, rows, 0.01))
+    # a stack that starts off a 16-byte boundary
+    buf = torch.empty(x.numel() + 16, dtype=torch.int8, device=cuda)
+    off = buf[3:3 + x.numel()].view(x.shape)
+    off.copy_(x)
+    assert torch.equal(se_pool(off, (r,) * bands, 0.01),
+                       se_pool_ref(x, (r,) * bands, 0.01))
+
+
+@pytest.mark.parametrize("bsz,bands,c,r,w", SE_SHAPES)
+def test_se_gate_vs_plain(cuda, bsz, bands, c, r, w):
+    """The gate multiply: exact int32 product, one float32 multiply,
+    bit-exact with the plain version."""
+    from repro_torch.kernels.se import se_gate
+    from repro_torch.kernels.se.ref import se_gate_ref
+    rng = np.random.default_rng(bsz + bands * c + w)
+    x = torch.from_numpy(rng.integers(-127, 128, (bsz * bands, c, r, w))
+                         .astype(np.int8)).to(cuda)
+    g = torch.from_numpy(rng.integers(0, 128, (bsz, c)).astype(np.int8)).to(
+        cuda)
+    for factor in (1.0 / 127, 0.013):
+        before = se_gate.launches
+        got = se_gate(x, g, factor)
+        assert se_gate.launches == before + 1
+        assert torch.equal(got, se_gate_ref(x, g, factor))
+
+
+def _effnet_sessions(mode, cuda, batch=8):
+    from repro_torch.models import efficientnet_b0_smoke
+    model = efficientnet_b0_smoke()
+    rng = np.random.default_rng(0)
+    calib = [rng.standard_normal(model.input_shape).astype(np.float32)
+             for _ in range(2)]
+    xs = rng.standard_normal((batch, *model.input_shape)).astype(np.float32)
+    plan = T.split_model(model, RATINGS, mode=mode)
+    cpu = Session(plan, calibration=calib, device="cpu", max_batch=batch)
+    return model, plan, cpu, xs
+
+
+def test_effnet_modes_on_card_agree_and_replay(cuda):
+    """EfficientNet's int8 answers on the card: the spatial, kernel and
+    neuron plans and the unsplit int8 reference (plain torch on the card)
+    agree bit for bit, every dispatch replays its graph, and the card is
+    within one code of the CPU on a stated share (the CPU's exp against the
+    card's expf)."""
+    answers = {}
+    for mode in ("spatial", "kernel", "neuron"):
+        model, plan, cpu, xs = _effnet_sessions(mode, cuda)
+        gpu = Session(plan, qmodel=cpu.qmodel, device=cuda, max_batch=8)
+        for _ in range(3):
+            answers[mode] = gpu.submit_many(xs)
+        # the first dispatch captures the graph and replays it, the others
+        # replay it
+        assert gpu.engine.graph_stats() == dict(captures=1, replays=3,
+                                                eager=1)
+        _assert_exp_codes(torch.from_numpy(answers[mode]),
+                          torch.from_numpy(cpu.submit_many(xs)),
+                          NET_CODE_SHARE)
+    np.testing.assert_array_equal(answers["spatial"], answers["kernel"])
+    np.testing.assert_array_equal(answers["spatial"], answers["neuron"])
+    ref = np.stack([T.reference_forward(model, x, device=cuda,
+                                        qmodel=cpu.qmodel).reshape(-1)
+                    for x in xs])
+    np.testing.assert_array_equal(answers["spatial"].reshape(len(xs), -1),
+                                  ref)
+
+
+@pytest.mark.parametrize("mode", ["spatial", "kernel", "neuron"])
+def test_effnet_graph_replays_the_new_kernels(cuda, mode):
+    """A replay of EfficientNet's captured forward runs the 5x5 and the
+    squeeze-and-excitation kernels (their names in the profiler's trace),
+    one ``se_pool`` a global pool (each block's and the head's), one
+    ``se_gate`` a block, one 5x5 launch a 5x5 layer, and gives the eager
+    walk's answers."""
+    from torch.autograd import DeviceType
+    model, plan, cpu, xs = _effnet_sessions(mode, cuda)
+    eng = T.CompiledSplitExecutor(plan, cpu.qmodel, device=cuda)
+    eng.run_batch(xs, mode="int8")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = eng.run_batch(xs, mode="int8")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    n_se = sum(layer.kind == "gate" for layer in model.layers)
+    n_pool = sum(layer.kind == "avgpool" for layer in model.layers)
+    n_5 = sum(layer.kind == "dwconv" and layer.kernel == (5, 5)
+              for layer in model.layers)
+    n_3 = sum(layer.kind == "dwconv" and layer.kernel == (3, 3)
+              for layer in model.layers)
+    assert n_pool == n_se + 1
+    assert sum("se_pool_kernel" in n for n in names) == n_pool
+    assert sum("se_gate_kernel" in n for n in names) == n_se
+    assert sum("dwconv5x5_kernel<" in n for n in names) == n_5
+    assert sum("dwconv3x3_kernel<" in n for n in names) == n_3
+    assert eng.graph_stats() == dict(captures=1, replays=2, eager=1)
+    np.testing.assert_array_equal(got, _walk(eng, xs, "int8"))

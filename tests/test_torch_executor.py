@@ -246,7 +246,7 @@ class TestEngine:
             T.reference_forward(tm, xs[0])
 
     def test_uncovered_layer_raises_off_cpu(self):
-        layer = convert_model(_conv_net(5, 1, depthwise=True)).layers[0]
+        layer = convert_model(_conv_net(7, 1, depthwise=True)).layers[0]
         assert not port_executor._kernel_eligible_dwconv(layer)
         with pytest.raises(NotImplementedError, match="no CUDA kernel"):
             port_executor._uncovered(layer, torch.empty(0, device="meta"))
