@@ -11,7 +11,8 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
    each flat depthwise layer, one ``dwconv3x3_bands`` launch over all bands
    of each spatial depthwise stage, both on unpadded input, and the same
    of the 5x5 forms; one ``qgemm`` over all shards of a linear layer; one
-   ``se_pool`` a global pool, one ``se_gate`` a gate), holds each
+   ``se_pool`` a global pool, one ``se_gate`` a gate; one ``band_windows``
+   a spatial stage and one ``band_take`` a spatial block), holds each
    kernel against its plain torch version on the card at every distinct
    shape of those launches, in the form the engine calls it (int8 output
    bit-exact, float32 output within the tolerance below), and times kernel
@@ -219,7 +220,10 @@ EFF_BATCH = 32
 # the CNN kernels' wrappers, each holding its launch counter
 CNN_WRAPPERS = ("qgemm", "dwconv3x3_bands", "dwconv3x3",
                 "dwconv5x5_bands_unpadded", "dwconv5x5_shards", "se_pool",
-                "se_gate")
+                "se_gate", "band_windows", "band_take")
+# the band staging kernels' (csrc/bands.cu) residual epilogue's multiplier
+# at their check: a ratio of two activation scales, rounded to float32
+BAND_RATIO = 0.7311
 # swish and sigmoid epilogues against their plain versions on the card:
 # int8 within one code on at most this share of the codes (one code at the
 # least), the kernel's expf against torch's exp; float32 as the clamps
@@ -297,7 +301,9 @@ def trace_calls(fn, n: int, pad: bool = False):
 # ``dwconv3x3_bands`` launch the same kernel, as do the two 5x5 forms)
 ENGINE_KERNELS = {"qgemm": "qgemm_kernel", "dwconv": "dwconv3x3_kernel",
                   "dwconv5x5": "dwconv5x5_kernel",
-                  "se_pool": "se_pool_kernel", "se_gate": "se_gate_kernel"}
+                  "se_pool": "se_pool_kernel", "se_gate": "se_gate_kernel",
+                  "band_windows": "band_windows_kernel",
+                  "band_take": "band_take_kernel"}
 
 
 def engine_kind(wrapper: str) -> str:
@@ -344,7 +350,11 @@ def path_launches(engine, batch: int) -> list[tuple[str, str, tuple]]:
     worker shard's (c_lo, c_hi, start, stop): one launch over all of them;
     a pool's (windows, C, R, W, rows), rows a band owns (one band of all
     H rows a sample where the layer is flat); a gate's (windows, C, R, W,
-    batch).  A linear layer is one launch over all of its shards' columns.
+    batch); a stage's windows (batch, bands, C, source rows, W, R, pad
+    columns, source layout: ``input`` (the block's, NCHW), ``nchw`` or
+    ``nhwc`` (a qgemm output), NHWC out); a block's output take (batch,
+    bands, C, r, W, H_out, source layout, residual).  A linear layer is
+    one launch over all of its shards' columns.
     Each main-path run holds the count of these against the kernels of a
     profiler trace of it."""
     from repro_torch.core.executor import _kernel_eligible_dwconv
@@ -363,12 +373,24 @@ def path_launches(engine, batch: int) -> list[tuple[str, str, tuple]]:
             bb = engine._banded_block(idxs)
             cut = engine._se_cuts.get(tuple(idxs))
             n_win = batch * len(bb.bands)
+            # the staged windows' source: the block input, then each
+            # stage's output (a qgemm's NHWC, a depthwise or gate stack's
+            # NCHW)
+            src, rows_in = "input", model.layers[bb.stages[0].index].in_shape[1]
             for st in bb.stages:
                 layer = model.layers[st.index]
                 c_in, _, w_in = layer.in_shape
                 wp = w_in + 2 * layer.padding[1]
                 r = int(st.src_rows.shape[1])
                 (kh, kw), (sh, sw) = layer.kernel, layer.stride
+                pointwise = (layer.kind == "conv" and (kh, kw, sh, sw) ==
+                             (1, 1, 1, 1) and wp == w_in)
+                pad = wp - w_in if layer.kind == "conv" else 0
+                out.append(("band_windows", layer.name,
+                            (batch, len(bb.bands), c_in, rows_in, w_in, r,
+                             pad // 2, src, pointwise)))
+                src = "nhwc" if layer.kind == "conv" else "nchw"
+                rows_in = st.r_out
                 if _kernel_eligible_dwconv(layer):
                     # the kernel pads the width itself
                     out.append((dw_wrapper(layer, True), layer.name,
@@ -389,6 +411,11 @@ def path_launches(engine, batch: int) -> list[tuple[str, str, tuple]]:
                     fc(model.layers[cut.fc2])
                     out.append(("se_gate", model.layers[cut.gate].name,
                                 (n_win, c, r_o, w_o, batch)))
+            last = model.layers[idxs[-1]]
+            c_o, h_o, w_o = last.out_shape
+            out.append(("band_take", last.name,
+                        (batch, len(bb.bands), c_o, rows_in, w_o, h_o, src,
+                         last.residual_from is not None)))
             continue
         # a flat layer: one launch per worker shard (conv), or one over
         # all of them
@@ -436,6 +463,8 @@ def _operands(kernel, shape, gen, dev, int_bias):
     gate's operands are its stack (and gate codes) and a factor that
     spreads the sums or products over the int8 range (no float case)."""
     import torch
+    if kernel.startswith("band_"):
+        return _band_operands(kernel, shape, gen, dev)
     if kernel.startswith("se_"):
         nb, c, r, w, last = shape
         x = torch.randint(-127, 128, (nb, c, r, w), generator=gen,
@@ -475,19 +504,54 @@ def _operands(kernel, shape, gen, dev, int_bias):
     return (x, w, scale, bias), kw
 
 
+def _band_operands(kernel, shape, gen, dev):
+    """A staging launch's operands: random int8 codes in the source's
+    layout, a random row table (a tenth of its rows zeros; one band empty
+    where there are several) or a random take of output rows, and the
+    residual codes and ratio of a block that adds one."""
+    import torch
+    from repro_torch.core.quantize import f32
+    bsz, bands, c, h, w, *rest = shape
+    src = rest[-2] if kernel == "band_windows" else rest[1]
+    x = torch.randint(-127, 128, (bsz if src == "input" else bsz * bands, c,
+                                  h, w), generator=gen, device=dev,
+                      dtype=torch.int8)
+    if src == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+    if kernel == "band_windows":
+        r, pw, _, nhwc = rest
+        table = torch.randint(0, h, (bands, r), generator=gen, device=dev,
+                              dtype=torch.int32)
+        table[torch.rand((bands, r), generator=gen, device=dev) < 0.1] = -1
+        if bands > 1:
+            table[-1] = -1
+        return (x, table, bsz), {"pw": pw, "channels_last": nhwc}
+    h_out, _, residual = rest
+    rows = torch.randperm(bands * h, generator=gen, device=dev)[
+        :h_out].sort().values.to(torch.int32)
+    args = (x, rows, bsz)
+    if residual:
+        res = torch.randint(-127, 128, (bsz, c, h_out, w), generator=gen,
+                            device=dev, dtype=torch.int8)
+        args += (res, f32(BAND_RATIO))
+    return args, {}
+
+
 def counters():
     """Each kernel's wrapper, which also holds its launch count."""
     from repro_torch.kernels.decode_attn.decode_attn import decode_attn
     from repro_torch.kernels.dwconv.dwconv import (
         dwconv3x3, dwconv3x3_bands, dwconv5x5_bands_unpadded,
         dwconv5x5_shards)
+    from repro_torch.kernels.bands import band_take, band_windows
     from repro_torch.kernels.qgemm.qgemm import qgemm
     from repro_torch.kernels.se import se_gate, se_pool
     return {"qgemm": qgemm, "dwconv3x3_bands": dwconv3x3_bands,
             "dwconv3x3": dwconv3x3,
             "dwconv5x5_bands_unpadded": dwconv5x5_bands_unpadded,
             "dwconv5x5_shards": dwconv5x5_shards, "se_pool": se_pool,
-            "se_gate": se_gate, "decode_attn": decode_attn}
+            "se_gate": se_gate, "band_windows": band_windows,
+            "band_take": band_take, "decode_attn": decode_attn}
 
 
 def dw_taps(kernel) -> int:
@@ -516,6 +580,10 @@ def launch_fns(kernel, shape):
     from repro_torch.kernels.qgemm.ref import qgemm_ref
     from repro_torch.kernels.se import se_gate, se_pool
     from repro_torch.kernels.se.ref import se_gate_ref, se_pool_ref
+    if kernel.startswith("band_"):
+        from repro_torch.kernels import bands
+        from repro_torch.kernels.bands import ref as bref
+        return getattr(bands, kernel), getattr(bref, kernel + "_ref")
     if kernel == "qgemm":
         return qgemm, qgemm_ref
     if kernel == "se_pool":
@@ -541,6 +609,25 @@ def _library(kernel, shape, args, kw):
     import torch
     import torch.nn.functional as F
     x, w = args[0], args[1]
+    if kernel == "band_windows":
+        # one gather of every window row (the source repeated over the
+        # bands where it is the block's input), one where for the zero rows
+        bsz, n_bands = args[2], w.shape[0]
+        c, h, wd = x.shape[1], x.shape[2], x.shape[3]
+        xv = (x.reshape(bsz, 1, c, h, wd).expand(bsz, n_bands, c, h, wd)
+              if x.shape[0] == bsz else x.reshape(bsz, n_bands, c, h, wd))
+        index = w.clamp(min=0).long()[None, :, None, :, None].expand(
+            bsz, n_bands, c, w.shape[1], wd)
+        mask = (w >= 0)[None, :, None, :, None]
+        return "torch.gather+where", lambda: torch.where(
+            mask, torch.gather(xv, 3, index), 0)
+    if kernel == "band_take":
+        # one advanced index of every output row's (band, row)
+        bsz = args[2]
+        r = x.shape[2]
+        xv = x.reshape(bsz, x.shape[0] // bsz, *x.shape[1:])
+        band, row = (w // r).long(), (w % r).long()
+        return "torch index", lambda: xv[:, band, :, row, :]
     if kernel == "se_pool":
         return "torch.sum int32", lambda: x.sum(dim=(2, 3),
                                                 dtype=torch.int32)
@@ -569,6 +656,12 @@ def schedule(kernel, shape) -> dict:
     import torch
     from repro_torch.kernels import backend
     n_sm = backend.sm_count(torch.device("cuda", 0))
+    if kernel.startswith("band_"):
+        # one CTA a tile of 64 positions of an output image x 64 channels
+        bsz, bands, c, _, w, *rest = shape
+        n_out, plane = ((bsz * bands, rest[0] * (w + 2 * rest[1]))
+                        if kernel == "band_windows" else (bsz, rest[0] * w))
+        return dict(c_tile=64, grid=[-(-plane // 64) * n_out, -(-c // 64)])
     if kernel == "se_pool":
         from repro_torch.kernels.se.se import pool_c_tile
         nb, c, _, _, rows = shape
@@ -614,10 +707,11 @@ def check_launch(kernel, shape, gen, dev, exp_acts: bool = False
     the int32 bias and int8 output (bit-exact) and with the float bias and
     float32 output (within F32_RTOL/F32_ATOL); with ``exp_acts``, also with
     the swish and sigmoid epilogues (int8 within one code on EXP_CODE_SHARE
-    of the codes, float32 as before).  A pool or a gate has the int8 case
-    alone, bit-exact.  Times kernel, plain version and library call with
-    CUDA events.  Returns the record and the int8 case's (kernels a launch
-    enqueues, call, operands, options) for the device-time trace."""
+    of the codes, float32 as before).  A pool, a gate or a staging pass has
+    the int8 case alone, bit-exact.  Times kernel, plain version and
+    library call with CUDA events.  Returns the record and the int8 case's
+    (kernels a launch enqueues, call, operands, options) for the
+    device-time trace."""
     import torch
     fn, plain = launch_fns(kernel, shape)
     args, kw = _operands(kernel, shape, gen, dev, int_bias=True)
@@ -626,7 +720,7 @@ def check_launch(kernel, shape, gen, dev, exp_acts: bool = False
     if not torch.equal(got, ref):
         raise AssertionError(f"{kernel} {shape}: differs from plain by {err}")
     ferr = 0.0
-    if not kernel.startswith("se_"):
+    if not kernel.startswith(("se_", "band_")):
         fargs, fkw = _operands(kernel, shape, gen, dev, int_bias=False)
         fcases = [fkw] + [dict(fkw, activation=a) for a in EXP_ACTS
                           if exp_acts]
@@ -653,6 +747,18 @@ def check_launch(kernel, shape, gen, dev, exp_acts: bool = False
         # multiply an element, the stack out
         n = args[0].numel()
         n_bytes, n_ops = 2 * n + args[1].numel(), 2.0 * n
+    elif kernel == "band_windows":
+        # each window row of source bytes read once (a zero row reads
+        # nothing), the table, every window byte out
+        x, table, bsz = args
+        n_read = int((table >= 0).sum()) * bsz * x.shape[1] * x.shape[3]
+        n_bytes, n_ops = n_read + 4 * table.numel() + got.numel(), 0.0
+    elif kernel == "band_take":
+        # each output row read once, the rows, the output (and the
+        # residual read, one multiply and one add an element)
+        n = got.numel()
+        n_bytes = 2 * n + 4 * args[1].numel() + (n if len(args) > 3 else 0)
+        n_ops = 2.0 * n if len(args) > 3 else 0.0
     else:
         # the input as the kernel reads it (unpadded but for the padded
         # yardstick) once, taps, scale and bias, every output once
@@ -673,7 +779,7 @@ def check_launch(kernel, shape, gen, dev, exp_acts: bool = False
 # name prefixes of the kernels in csrc/*.cu: every kernel a wrapper
 # enqueues starts with its wrapper's name
 OUR_KERNELS = ("qgemm_", "dwconv3x3_", "dwconv5x5_", "se_pool_",
-               "se_gate_", "decode_attn_")
+               "se_gate_", "band_windows_", "band_take_", "decode_attn_")
 
 
 TRACE_CHUNK = 48        # launch shapes one profiler trace holds
@@ -842,8 +948,9 @@ def serve_path(mode, model, qmodel, xs, dev, expect, *, label=None,
     if kernels != want:
         raise AssertionError(f"{label} path ran {kernels} kernels in each "
                              f"of {tries} traces, its plan counts {want}")
-    for name in need or ("qgemm", "dwconv3x3" if mode != "spatial" else
-                         "dwconv3x3_bands"):
+    for name in need or (("qgemm", "dwconv3x3") if mode != "spatial" else
+                         ("qgemm", "dwconv3x3_bands", "band_windows",
+                          "band_take")):
         if expect[name] <= 0:
             raise AssertionError(f"{label} path launched no {name}")
     against = "cpu" if want_ys is None else "card_reference"
@@ -923,7 +1030,8 @@ def effnet_phase(dev) -> tuple[list[dict], dict]:
         bands = mode == "spatial"
         need = ("qgemm", "se_pool", "se_gate",
                 "dwconv3x3_bands" if bands else "dwconv3x3",
-                "dwconv5x5_bands_unpadded" if bands else "dwconv5x5_shards")
+                "dwconv5x5_bands_unpadded" if bands else "dwconv5x5_shards",
+                *(("band_windows", "band_take") if bands else ()))
         paths.append(serve_path(mode, model, qmodel, xs, dev, expect,
                                 label=label, want_ys=ref, need=need))
     return paths, runs
@@ -3597,7 +3705,8 @@ def main() -> int:
         sch = r["schedule"]
         split = (f"t{sch['tile'][0]} s{sch['splits']}"
                  if r["kernel"] == "qgemm" else
-                 f"c{sch.get('c_tile', '-')}" if r["kernel"].startswith("se_")
+                 f"c{sch.get('c_tile', '-')}"
+                 if r["kernel"].startswith(("se_", "band_"))
                  else f"c{sch['c_tile']} r{sch['rows_tile']} "
                  f"z{sch['shards']}")
         print(f"sched {r['kernel'][:6]} "
@@ -3659,7 +3768,8 @@ def main() -> int:
 
     source = {name: "src/repro_torch/csrc/" + (
         "qgemm.cu" if name == "qgemm" else
-        "se.cu" if name.startswith("se_") else "dwconv.cu")
+        "se.cu" if name.startswith("se_") else
+        "bands.cu" if name.startswith("band_") else "dwconv.cu")
         for name in names}
     # the reference's kernels each replaces (it has no EfficientNet)
     replaces = {"qgemm": "src/repro/kernels/qgemm/qgemm.py:63",

@@ -36,12 +36,14 @@ Two executors share those semantics:
   traces the plan under ``jax.jit(jax.vmap(...))``, the port runs it eagerly
   and batch-first: band stacks are (batch * bands, C, R, W), the GEMM's M is
   batch * bands * oh * ow, the classifier's M is the batch.  Its device
-  constants (weights, epilogue scales and biases, band gather indices) are
+  constants (weights, epilogue scales and biases, band row tables) are
   uploaded once per (plan fingerprint, device) into a class-level cache, and
   a forward pass never waits on the device.  It always takes the structure
   of the reference's ``use_pallas=True`` path — im2col + ``qgemm`` for
   convs, one ``qgemm`` over all shards of a linear layer, ``dwconv`` for 3x3
-  and 5x5 depthwise, ``se_pool`` for every global pool — and the wrappers
+  and 5x5 depthwise, ``se_pool`` for every global pool — with one
+  ``band_windows`` pass staging each spatial stage's windows and one
+  ``band_take`` pass a spatial block's output rows, and the wrappers
   alone decide, from the tensor's device, between the CUDA kernel and its
   plain version.  So the card and the CPU differ only inside the
   kernels, and int8 output is bit-identical on both and to the reference
@@ -69,6 +71,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import trace
+from ..kernels.bands import band_take, band_windows
 from ..kernels.dwconv.ops import (ShardTable, dwconv_bands_unpadded,
                                    dwconv_shards, shard_table)
 from ..kernels.dwconv.ref import dwconv_acc_int32 as _dwconv_bands_int32
@@ -516,9 +519,10 @@ class _BandedStage:
     output otherwise.  ``mask`` marks which window rows carry real data:
     everything else (explicit zero padding at the tensor edge, and the fill
     that equalizes heterogeneous band heights to the common window height)
-    is zeroed in one ``where``.  Rows a band does not own come out of the
-    stage as garbage and are dropped by the next gather (or the final output
-    gather), so a single uniform launch covers every band height."""
+    is a row of zeros (:func:`_row_table`).  Rows a band does not own come
+    out of the stage as garbage and are dropped by the next gather (or the
+    final output gather), so a single uniform launch covers every band
+    height."""
 
     index: int                      # layer index in the model
     src_rows: np.ndarray            # (bands, R_win) int32, masked-safe
@@ -583,6 +587,14 @@ def _compile_banded_block(model, idxs: tuple[int, ...],
         g = geoms[-1][wk]
         out_flat[g.row_lo:g.row_hi] = b * r_out_last + np.arange(g.n_rows)
     return _BandedBlock(tuple(idxs), tuple(active), tuple(stages), out_flat)
+
+
+def _row_table(stage: _BandedStage) -> np.ndarray:
+    """The stage's (bands, R_win) int32 row table, as the band staging
+    kernels read it: ``src_rows`` where ``mask`` holds, -1 (a row of zeros)
+    elsewhere."""
+    return np.where(stage.mask[:, 0, :, 0], stage.src_rows,
+                    -1).astype(np.int32)
 
 
 def _plan_fingerprint(plan: SplitPlan, qmodel: QuantizedModel | None) -> str:
@@ -661,14 +673,15 @@ class _Int8Layer:
 class _DeviceConstants:
     """Everything one plan needs on one device, uploaded once: per-layer
     int8 and float constants (filled per mode on first use), every fused
-    spatial block's gather indices and masks, and the shard table of every
-    flat 3x3 or 5x5 depthwise layer."""
+    spatial block's row tables, and the shard table of every flat 3x3 or
+    5x5 depthwise layer."""
 
     def __init__(self):
         self.int8: dict[int, _Int8Layer] = {}
         self.float: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-        # per spatial block: gather indices, masks, output rows and, for a
-        # squeeze-and-excitation block, each band's own depthwise rows
+        # per spatial block: each stage's row table (:func:`_row_table`),
+        # the output rows and, for a squeeze-and-excitation block, each
+        # band's own depthwise rows and their mask (the float pool's)
         self.bands: dict[tuple[int, ...], tuple] = {}
         self.shards: dict[int, ShardTable] = {}
         self.modes: set[str] = set()
@@ -885,15 +898,17 @@ class CompiledSplitExecutor:
                 continue
             bb = self._banded_block(idxs)
             cut = self._se_cuts.get(idxs)
-            rows = None
+            tables = [_row_table(st) for st in bb.stages]
+            rows = own = None
             if cut is not None:
                 dw = self._band_geometry[cut.dw]
                 rows = tuple(dw[w].n_rows if dw[w] is not None else 0
                              for w in bb.bands)
-            consts.bands[idxs] = (
-                [t(st.src_rows, torch.int64) for st in bb.stages],
-                [t(st.mask) for st in bb.stages],
-                t(bb.out_flat, torch.int64), rows)
+                # the rows the project stage reads: each band's own
+                own = t(tables[bb.idxs.index(cut.dw) + 1] >= 0)[
+                    :, None, :, None]
+            consts.bands[idxs] = ([t(tb) for tb in tables],
+                                  t(bb.out_flat, torch.int32), rows, own)
 
     # -- per-layer bodies (batch-first) -------------------------------------
     def _layer_float(self, i: int, layer: LayerSpec, split: LayerSplit, cur,
@@ -979,87 +994,78 @@ class CompiledSplitExecutor:
                 parts.append(flat[:, g.bbox_start:g.bbox_start + g.n_positions])
         return torch.cat(parts, dim=1).reshape(bsz, *layer.out_shape)
 
-    def _banded_stage_int8(self, layer: LayerSpec, xw, c: _Int8Layer):
-        """One batched-band int8 conv stage over the gathered windows
-        ``xw`` ((batch*bands, C_in, R, W + 2*pw), zero rows in place): one
+    def _banded_stage_int8(self, layer: LayerSpec, x, table, bsz: int,
+                           c: _Int8Layer):
+        """One batched-band int8 conv stage over the windows that
+        ``band_windows`` stages from ``x`` by the stage's row ``table``
+        ((batch*bands, C_in, R, W + 2*pw), zero rows in place): one
         ``im2col_bands`` + ``qgemm`` launch, with the bands (and the batch)
-        folded into the GEMM's M.  (A 3x3 or 5x5 depthwise stage is
-        one ``dwconv_bands_unpadded`` launch on the unpadded windows, in
-        :meth:`_block_spatial`.)"""
+        folded into the GEMM's M.  A 1x1 conv's windows are staged in NHWC
+        memory, which is the GEMM's operand as it is; its output is left
+        NHWC, viewed as (batch*bands, C_out, R, W).  (A 3x3 or 5x5
+        depthwise stage is one ``dwconv_bands_unpadded`` launch on the
+        unpadded windows, in :meth:`_block_spatial`.)"""
         act, out_scale = layer.activation, c.out_scale
+        pw = layer.padding[1]
         if layer.kind == "conv":
+            pointwise = (layer.kernel == (1, 1) and layer.stride == (1, 1)
+                         and pw == 0)
+            xw = band_windows(x, table, bsz, pw=pw, channels_last=pointwise)
             patches, (oh, ow) = im2col_bands(xw, layer.kernel, layer.stride)
             y = qgemm(patches, c.w_gemm, c.scale, c.b_q, activation=act,
                       out_scale=out_scale)
             return y.reshape(xw.shape[0], oh, ow, -1).permute(0, 3, 1, 2)
+        xw = band_windows(x, table, bsz, pw=pw)
         _uncovered(layer, xw)
         acc = _conv_bands(xw, c.w, layer.stride, int8=True)
         return requantize(acc + c.b_q[:, None, None],
                           c.scale[:, None, None], out_scale, act)
 
     def _block_spatial(self, idxs: tuple[int, ...], cur, mode: str,
-                       consts: _DeviceConstants, mark, attrs: tuple):
+                       consts: _DeviceConstants, mark, attrs: tuple,
+                       residual=None):
         """Fused spatial block, batched over samples and bands: every stage
         executes ALL workers' bands of every sample as one launch on a
         (batch*bands, C, rows, W) stack (heterogeneous band heights
-        zero-filled to the common window height).  The block-boundary halo
-        gather happens once, against the block input; interior stages
-        re-gather band-locally from the previous stage's stack.  One static
-        row gather aggregates the output rows.
+        zero-filled to the common window height).  Before each stage one
+        ``band_windows`` pass stages its windows from the producer's tensor
+        (the block input for the first stage: the one halo gather per block
+        boundary; the previous stage's stack after it), in the layout the
+        stage's kernel reads; one ``band_take`` pass aggregates the output
+        rows, and adds the int8 ``residual`` ((stashed codes, ratio)) where
+        the caller gives one.
 
         A squeeze-and-excitation block leaves the bands after its depthwise
         stage (:meth:`_squeeze_excite`) and comes back to them for the
         project stage; ``mark(attrs[k])`` ends its k-th span there (the
         last one ends in :meth:`_forward`)."""
         model = self.plan.model
-        srcs, masks, out_flat, own_rows = consts.bands[idxs]
+        tables, out_rows, own_rows, own = consts.bands[idxs]
         cut = self._se_cuts.get(idxs)
         stages = self._banded_block(idxs).idxs
         bsz = cur.shape[0]
-        n_bands = len(srcs[0])
-        x = None
+        x = cur
         for li, idx in enumerate(stages):
             layer = model.layers[idx]
-            _, pw = layer.padding
-            src, mask = srcs[li], masks[li]
-            r_win = src.shape[1]
-            if li == 0:
-                # the one halo gather per block boundary: band + halo
-                # windows of every worker, straight from the block input
-                c_in, width = cur.shape[1], cur.shape[3]
-                xw = cur.index_select(2, src.reshape(-1))
-                xw = xw.reshape(bsz, c_in, n_bands, r_win, width)
-                xw = xw.permute(0, 2, 1, 3, 4)
-            else:
-                c_in, rows, width = x.shape[1], x.shape[2], x.shape[3]
-                xv = x.reshape(bsz, n_bands, c_in, rows, width)
-                index = src[None, :, None, :, None].expand(
-                    bsz, n_bands, c_in, r_win, width)
-                xw = torch.gather(xv, 3, index)
-            xw = torch.where(mask, xw, 0)
-            xw = xw.reshape(bsz * n_bands, c_in, r_win, width)
             if mode == "int8" and _kernel_eligible_dwconv(layer):
                 # the kernel reads the width's zero columns itself
                 c = consts.int8[idx]
                 x = dwconv_bands_unpadded(
-                    xw, c.w_dw, c.scale, c.b_q, stride=layer.stride[0],
-                    activation=layer.activation, out_scale=c.out_scale)
+                    band_windows(x, tables[li], bsz), c.w_dw, c.scale, c.b_q,
+                    stride=layer.stride[0], activation=layer.activation,
+                    out_scale=c.out_scale)
             elif mode == "int8":
-                x = self._banded_stage_int8(layer, _pad_chw(xw, (0, pw)),
+                x = self._banded_stage_int8(layer, x, tables[li], bsz,
                                             consts.int8[idx])
             else:
                 wt, b = consts.float[idx]
-                acc = _conv_bands(_pad_chw(xw, (0, pw)), wt, layer.stride,
-                                  int8=False)
+                xw = band_windows(x, tables[li], bsz, pw=layer.padding[1])
+                acc = _conv_bands(xw, wt, layer.stride, int8=False)
                 x = apply_activation(acc + b[:, None, None], layer.activation)
             if cut is not None and idx == cut.dw:
-                x = self._squeeze_excite(cut, x, bsz, own_rows, masks[li + 1],
-                                         mode, consts, mark, attrs)
-        # (batch*bands, C, r_out, W) -> one static row gather aggregates
-        c_out, r_out, width = x.shape[1], x.shape[2], x.shape[3]
-        y = x.reshape(bsz, n_bands, c_out, r_out, width).permute(0, 2, 1, 3, 4)
-        y = y.reshape(bsz, c_out, n_bands * r_out, width)
-        return y.index_select(2, out_flat)
+                x = self._squeeze_excite(cut, x, bsz, own_rows, own, mode,
+                                         consts, mark, attrs)
+        return band_take(x, out_rows, bsz, *(residual or ()))
 
     def _squeeze_excite(self, cut: SECut, x, bsz: int, rows, own, mode: str,
                         consts: _DeviceConstants, mark, attrs):
@@ -1141,9 +1147,16 @@ class CompiledSplitExecutor:
             i = idxs[-1]
             layer = model.layers[i]
             cur = cur.reshape(bsz, *model.layers[idxs[0]].in_shape)
-            if self.plan.splits[idxs[0]].mode == "spatial":
+            spatial = self.plan.splits[idxs[0]].mode == "spatial"
+            residual = None
+            if spatial and mode == "int8" and layer.residual_from is not None:
+                # the block's output pass adds it
+                residual = (stash[layer.residual_from], f32(
+                    self._save_scale[layer.residual_from]
+                    / float(self.qmodel.layers[i].out_scale)))
+            if spatial:
                 cur = self._block_spatial(idxs, cur, mode, consts, mark,
-                                          self._block_attrs[g])
+                                          self._block_attrs[g], residual)
             elif layer.kind == "gate":
                 cur = self._gate(i, layer, stash[layer.gate_from], cur, mode)
             elif mode == "int8":
@@ -1151,7 +1164,7 @@ class CompiledSplitExecutor:
             else:
                 cur = self._layer_float(i, layer, self.plan.splits[i], cur,
                                         consts)
-            if layer.residual_from is not None:
+            if layer.residual_from is not None and residual is None:
                 if mode == "int8":
                     cur = _residual_add_int8(
                         cur, float(self.qmodel.layers[i].out_scale),

@@ -19,6 +19,7 @@ import torch
 import repro_torch.core as T
 from repro_torch.api import Session
 from repro_torch.configs import get_config
+from repro_torch.kernels.bands import band_take, band_windows
 from repro_torch.kernels.decode_attn.decode_attn import (chunk_is_empty,
                                                         decode_attn,
                                                         decode_schedule)
@@ -1609,3 +1610,169 @@ def test_effnet_graph_replays_the_new_kernels(cuda, mode):
     assert sum("dwconv3x3_kernel<" in n for n in names) == n_3
     assert eng.graph_stats() == dict(captures=1, replays=2, eager=1)
     np.testing.assert_array_equal(got, _walk(eng, xs, "int8"))
+
+
+# -- band staging (csrc/bands.cu) ---------------------------------------------
+
+BAND_PLANS = {"mnv2_112": ("mobilenet_v2_paper", 8),
+              "effb0_224": ("efficientnet_b0", 32)}
+
+
+def _layout(t):
+    """'nchw' or 'nhwc': the memory a staging kernel reads ``t`` in."""
+    return "nchw" if t.is_contiguous() else "nhwc"
+
+
+@pytest.mark.parametrize("mode", ["int8", "float"])
+@pytest.mark.parametrize("net", sorted(BAND_PLANS))
+def test_band_staging_at_every_launch_of_the_spatial_plan(cuda, net, mode,
+                                                          monkeypatch):
+    """Every ``band_windows`` and ``band_take`` launch of a forward of the
+    benchmark's spatial plans (MobileNetV2 at 112, batch 8; EfficientNet-B0
+    at 224, batch 32), on the engine's own inputs, equals its plain version
+    bit for bit: int8 and float32, the block input and NCHW and NHWC
+    stacks as sources, NCHW (the stem's pad columns too) and NHWC windows,
+    the int8 residual epilogue on and off.  A spatial group makes one
+    staging launch a stage and one more at its exit."""
+    import repro_torch.core.executor as ex
+    from repro_torch import models
+    from repro_torch.kernels.bands import ref
+    name, batch = BAND_PLANS[net]
+    model = getattr(models, name)(seed=0)
+    plan = T.split_model(model, [1.0, 0.8, 1.2, 0.6, 1.4, 0.9, 1.1, 0.7],
+                         mode="spatial")
+    rng = np.random.default_rng(11)
+    qm = T.quantize_model(model, list(rng.uniform(0.02, 0.1,
+                                                  len(model.layers) + 1)))
+    eng = T.CompiledSplitExecutor(plan, qm if mode == "int8" else None,
+                                  device=cuda)
+    seen = {"windows": set(), "take": set()}
+
+    def windows(x, table, bsz, **kw):
+        got = band_windows(x, table, bsz, **kw)
+        want = ref.band_windows_ref(x, table, bsz, kw.get("pw", 0),
+                                    kw.get("channels_last", False))
+        assert torch.equal(got, want), (tuple(x.shape), tuple(table.shape))
+        assert got.is_contiguous(memory_format=torch.channels_last if kw.get(
+            "channels_last") else torch.contiguous_format)
+        src = "input" if x.shape[0] == bsz else _layout(x)
+        out = "nhwc" if kw.get("channels_last") else (
+            f"nchw+{kw['pw']}" if kw.get("pw") else "nchw")
+        seen["windows"].add((src, out, x.dtype))
+        return got
+
+    def take(x, rows, bsz, *res):
+        got = band_take(x, rows, bsz, *res)
+        assert torch.equal(got, ref.band_take_ref(x, rows, bsz, *res))
+        seen["take"].add((_layout(x), bool(res), x.dtype))
+        return got
+
+    monkeypatch.setattr(ex, "band_windows", windows)
+    monkeypatch.setattr(ex, "band_take", take)
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, *model.input_shape)).astype(np.float32)).to(cuda)
+    groups = [g for g in plan.block_groups
+              if plan.splits[g[0]].mode == "spatial"]
+    stages = sum(len(eng._banded_block(g).stages) for g in groups)
+    before = (band_windows.launches, band_take.launches)
+    with ex._full_fp32():
+        eng._forward(x, mode)
+    torch.cuda.synchronize()
+    assert (band_windows.launches - before[0],
+            band_take.launches - before[1]) == (stages, len(groups))
+    if mode == "int8":
+        i8 = torch.int8
+        assert {("input", "nhwc", i8), ("input", "nchw+1", i8),
+                ("nhwc", "nchw", i8), ("nchw", "nhwc", i8)} <= seen["windows"]
+        assert {("nhwc", True, i8), ("nhwc", False, i8)} <= seen["take"]
+    else:
+        f = torch.float32
+        assert {("input", "nchw", f), ("input", "nchw+1", f),
+                ("nchw", "nchw", f)} <= seen["windows"]
+        assert seen["take"] == {("nchw", False, f)}
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+@pytest.mark.parametrize("source", ["input", "nchw", "nhwc"])
+@pytest.mark.parametrize("c", [3, 24, 40, 144, 1152])
+def test_band_windows_empty_bands_and_widths_vs_plain(cuda, c, source,
+                                                      dtype):
+    """Random row tables with an empty band (all -1) and rows of zeros,
+    every channel width's vector access (3 channels: one byte), both
+    output layouts and a pad: equal to the plain version."""
+    rng = np.random.default_rng(c)
+    bsz, n_bands, r_win, h, w = 3, 4, 6, 9, 7
+    first = source == "input"
+    shape = (bsz if first else bsz * n_bands, c, h, w)
+    x = (torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+         if dtype == torch.int8 else
+         torch.from_numpy(rng.standard_normal(shape).astype(np.float32)))
+    x = x.to(cuda)
+    if source == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+    t = rng.integers(0, h, (n_bands, r_win)).astype(np.int32)
+    t[rng.random(t.shape) < 0.3] = -1
+    t[2] = -1
+    table = torch.from_numpy(t).to(cuda)
+    from repro_torch.kernels.bands.ref import band_windows_ref
+    for pw, cl in ((0, False), (2, False), (0, True)):
+        got = band_windows(x, table, bsz, pw=pw, channels_last=cl)
+        assert torch.equal(got, band_windows_ref(x, table, bsz, pw, cl))
+        assert not got.view(bsz, n_bands, *got.shape[1:])[:, 2].any()
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("c", [5, 24, 96, 320])
+def test_band_take_vs_plain(cuda, c, residual):
+    """The exit's row take from NCHW and NHWC stacks, with and without the
+    int8 residual epilogue (rint of the f32 product, as
+    ``_residual_add_int8``), equal to the plain version and the old add."""
+    from repro_torch.core.executor import _residual_add_int8
+    from repro_torch.core.quantize import f32
+    from repro_torch.kernels.bands.ref import band_take_ref
+    rng = np.random.default_rng(c + residual)
+    bsz, n_bands, r, w = 8, 6, 5, 14
+    x = torch.from_numpy(rng.integers(-127, 128, (bsz * n_bands, c, r, w))
+                         .astype(np.int8)).to(cuda)
+    rows = torch.from_numpy(np.sort(rng.choice(n_bands * r, 14, replace=False))
+                            .astype(np.int32)).to(cuda)
+    res = torch.from_numpy(rng.integers(-127, 128, (bsz, c, 14, w))
+                           .astype(np.int8)).to(cuda)
+    args = (res, f32(0.01 / 0.013)) if residual else ()
+    for src in (x, x.contiguous(memory_format=torch.channels_last)):
+        got = band_take(src, rows, bsz, *args)
+        assert torch.equal(got, band_take_ref(src, rows, bsz, *args))
+        if residual:
+            plain = band_take_ref(src, rows, bsz)
+            assert torch.equal(got, _residual_add_int8(plain, 0.013, res,
+                                                       0.01))
+
+
+def test_band_staging_launches_and_graph_replay(cuda):
+    """The smoke model's spatial plan: an eager walk makes one
+    ``band_windows`` launch a stage and one ``band_take`` a spatial group;
+    a replay of the captured forward runs those kernels (their names in
+    the profiler's trace), no torch gather, and gives the walk's answers."""
+    from torch.autograd import DeviceType
+    eng, make = _graph_engine("spatial", cuda)
+    plan = eng.plan
+    groups = [g for g in plan.block_groups
+              if plan.splits[g[0]].mode == "spatial"]
+    stages = sum(len(eng._banded_block(g).stages) for g in groups)
+    x = make(8)
+    before = (band_windows.launches, band_take.launches)
+    want = _walk(eng, x, "int8")
+    assert (band_windows.launches - before[0],
+            band_take.launches - before[1]) == (stages, len(groups))
+    eng.run_batch(x, mode="int8")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = eng.run_batch(x, mode="int8")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert sum("band_windows_kernel" in n for n in names) == stages
+    assert sum("band_take_kernel" in n for n in names) == len(groups)
+    assert not any("_scatter_gather" in n or "indexSelect" in n
+                   for n in names)
+    np.testing.assert_array_equal(got, want)

@@ -414,7 +414,7 @@ class TestWrappers:
     def test_build_flags_target_hopper(self):
         assert "arch=compute_90a,code=sm_90a" in backend.NVCC_FLAGS
         assert set(backend.sources()) == {"qgemm", "dwconv", "decode_attn",
-                                          "se"}
+                                          "se", "bands"}
 
 
 class TestDecodeAttnPlain:
