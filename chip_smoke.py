@@ -6,40 +6,37 @@
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. lists every kernel launch that one forward of each main-path plan makes
-   (``path_launches``: one ``dwconv3x3`` launch over all worker shards of
-   each flat depthwise layer, one ``dwconv3x3_bands`` launch over all bands
-   of each spatial depthwise stage, both on unpadded input, and the same
-   of the 5x5 forms; one ``qgemm`` over all shards of a linear layer; one
-   ``se_pool`` a global pool, one ``se_gate`` a gate; one ``band_windows``
-   a spatial stage and one ``band_take`` a spatial block), holds each
-   kernel against its plain torch version on the card at every distinct
-   shape of those launches, in the form the engine calls it (int8 output
-   bit-exact, float32 output within the tolerance below), and times kernel
-   (profiler device time, summed over every kernel a wrapper enqueues for
-   one launch, and CUDA events), plain version and a library call there;
-   prints each shape's schedule (tile, splits, grid) beside its time; all
-   shapes go to ``chiprun_out/chip_smoke_shapes.json``.  This step runs
-   after step 7, over the engine's, the workers' and the server's launches
-   together (``path``: ``engine``, ``distributed``, ``serving``);
+2. lists every kernel launch that one forward of each main-path plan makes,
+   from a recorded walk of the engine (``tests/torch_launches.py``: the
+   engine's calls of its kernel wrappers, each keyed by its own arguments
+   in ``engine_launches``), holds each kernel against its plain torch
+   version on the card at every distinct shape of those launches, in the
+   form the engine calls it (int8 output bit-exact, float32 output within
+   the tolerance below), and times kernel (profiler device time, summed
+   over every kernel a wrapper enqueues for one launch, and CUDA events),
+   plain version and a library call there; prints each shape's schedule
+   (tile, splits, grid) beside its time; all shapes go to
+   ``chiprun_out/chip_smoke_shapes.json``.  This step runs after step 7,
+   over the engine's, the workers' and the server's launches together
+   (``path``: ``engine``, ``distributed``, ``serving``);
 3. serves int8 MobileNetV2 at the paper's full width (112x112x3, 1000
    classes, 54 layers) split spatially across 8 workers of unequal ratings
    through ``Session.submit_many`` on the card, and requires the output to
-   equal a CPU session of the port bit for bit, the ``qgemm`` and
-   ``dwconv3x3`` kernels of a profiler trace of that run to number the
-   launches listed for the plan (the forward is a CUDA graph captured in
-   the warm-up and replayed, and a replay calls no wrapper: the wrappers'
-   launch counters must stay at 0), every dispatch after the warm-up to
-   replay (``graphs``: ``graph_stats()``), and no weight to be copied into
-   the kernel's layout (``qgemm.weight_copies`` 0);
+   equal a CPU session of the port bit for bit, the engine's kernels in a
+   profiler trace of that run to number the launches of the recorded walk
+   (the forward is a CUDA graph captured in the warm-up and replayed, and
+   a replay calls no wrapper: the wrappers' launch counters must stay at
+   0), every dispatch after the warm-up to replay (``graphs``:
+   ``graph_stats()``), and no weight to be copied into the kernel's layout
+   (``qgemm.weight_copies`` 0);
 4. does the same with a kernel-mode and a neuron-mode plan (the flat
    depthwise and im2col paths), then serves EfficientNet-B0 at 224x224
    (``effnet_phase``) through its spatial, kernel and neuron plans at
    batch EFF_BATCH, each equal bit for bit to the unsplit int8 walk on the
    card (its swish and sigmoid take the card's expf, which the CPU's exp
    may miss by a code), each trace showing the ``se_pool``, ``se_gate``,
-   ``dwconv5x5`` and other kernels its plan lists; their launch shapes join
-   step 2, where the swish and sigmoid epilogues are held too (int8
+   ``dwconv5x5`` and other kernels its walk launched; their launch shapes
+   join step 2, where the swish and sigmoid epilogues are held too (int8
    within one code on EXP_CODE_SHARE of the codes);
 5. serves the float model on the card, allclose to the CPU;
 6. the planner stack and the distributed runtime:
@@ -77,20 +74,21 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
    neuron-mode split over 4 MCUs rated (3, 1, 2, 0.5) with an SLO of p99
    <= 250 ms, each with the constants of one seed-0 calibration on the
    card; 32 requests a tenant through ``Server.submit`` must equal
-   ``Session.run`` byte for byte, under a profiler trace whose ``qgemm``
-   and ``dwconv3x3`` kernels must number the launches the plans list for
-   the dispatches made; then each tenant's saturation throughput, 3 s of
-   open-loop Poisson load at 0.4x of it (no failed ticket), and 3 s of
-   tenant B at 2x (it must shed, every rejection a typed ``Overloaded``
-   counted by reason, the accepted p99 <= 1 s); every dispatch must have
-   replayed a graph (the counters still at 0), and the traced part must
-   have run ``qgemm`` and ``dwconv3x3_bands`` (A) and ``dwconv3x3`` (B);
-   last, each tenant's dispatch p50 at bucket 8 at saturation under
-   ``max_inflight`` 1 and 2.  A ``dw_many_shards`` line
-   follows: a neuron-mode split of ``mobilenet_v2_smoke`` over 72 workers,
-   whose 5 depthwise layers (72 shards each) take two launches each (the
-   kernels of a profiler trace of the batch), every table equal to the
-   plain version and the batch equal to the CPU's;
+   ``Session.run`` byte for byte, under a profiler trace whose engine
+   kernels must number the launches that a recorded walk of each tenant's
+   engine lists at each bucket, for the dispatches made; then each
+   tenant's saturation throughput, 3 s of open-loop Poisson load at 0.4x
+   of it (no failed ticket), and 3 s of tenant B at 2x (it must shed,
+   every rejection a typed ``Overloaded`` counted by reason, the accepted
+   p99 <= 1 s); every dispatch must have replayed a graph (the counters
+   still at 0), and the traced part must have run ``qgemm`` and
+   ``dwconv3x3_bands`` (A) and ``dwconv3x3`` (B); last, each tenant's
+   dispatch p50 at bucket 8 at saturation under ``max_inflight`` 1 and 2.
+   A ``dw_many_shards`` line follows: a neuron-mode split of
+   ``mobilenet_v2_smoke`` over 72 workers, whose 5 depthwise layers (72
+   shards each) take two launches each (the kernels of a profiler trace of
+   the batch), every layer's call equal to the plain version and the batch
+   equal to the CPU's;
 8. the LM serving path, ``qwen3-14b`` at its published width:
    (a) 2 layers in float32 with TF32 off: prefill and 4 greedy decode
        steps through the serve steps must give the full forward's
@@ -184,14 +182,12 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, then:
    (the three engine plans of each network and the in-process distributed
    run; for
    ``decode_attn`` the dense LM run, each family's and the mesh serve's),
-   its largest error
-   against its plain version, and the sums over those launches of its
-   time, its bound, and the plain and library times at each launch's
-   shape; a CNN kernel also carries its launches in the serving run's
-   traced part (``serving_launches``).  An engine plan's launches by
-   wrapper are the plan's list, held against the trace's kernels by name:
-   ``dwconv3x3`` and ``dwconv3x3_bands`` launch the same kernel, as do the
-   two 5x5 forms;
+   its largest error against its plain version, and the sums over those
+   launches of its time, its bound, and the plain and library times at
+   each launch's shape; a CNN kernel also carries its launches in the
+   serving run's traced part (``serving_launches``).  An engine plan's
+   launches by wrapper are those of its recorded walk, held against the
+   trace's kernels by name (ENGINE_KERNELS);
 13. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero, as does a machine without CUDA or a
@@ -217,10 +213,6 @@ BATCH = 8
 RATINGS = [1.0, 0.8, 1.2, 0.6, 1.4, 0.9, 1.1, 0.7]
 # EfficientNet-B0 at 224x224 is served at the benchmark cell's batch
 EFF_BATCH = 32
-# the CNN kernels' wrappers, each holding its launch counter
-CNN_WRAPPERS = ("qgemm", "dwconv3x3_bands", "dwconv3x3",
-                "dwconv5x5_bands_unpadded", "dwconv5x5_shards", "se_pool",
-                "se_gate", "band_windows", "band_take")
 # the band staging kernels' (csrc/bands.cu) residual epilogue's multiplier
 # at their check: a ratio of two activation scales, rounded to float32
 BAND_RATIO = 0.7311
@@ -297,29 +289,18 @@ def trace_calls(fn, n: int, pad: bool = False):
             if e.device_type == DeviceType.CUDA], wall_us, out
 
 
-# the engine's kernels by their names on the card (``dwconv3x3`` and
-# ``dwconv3x3_bands`` launch the same kernel, as do the two 5x5 forms)
-ENGINE_KERNELS = {"qgemm": "qgemm_kernel", "dwconv": "dwconv3x3_kernel",
-                  "dwconv5x5": "dwconv5x5_kernel",
-                  "se_pool": "se_pool_kernel", "se_gate": "se_gate_kernel",
-                  "band_windows": "band_windows_kernel",
-                  "band_take": "band_take_kernel"}
-
-
-def engine_kind(wrapper: str) -> str:
-    if wrapper.startswith("dwconv3x3"):
-        return "dwconv"
-    if wrapper.startswith("dwconv5x5"):
-        return "dwconv5x5"
-    return wrapper
-
-
-def dw_wrapper(layer, bands: bool) -> str:
-    """The wrapper a depthwise layer launches: by its kernel size, over a
-    band stack or over a flat layer's shards."""
-    if layer.kernel[0] == 5:
-        return "dwconv5x5_bands_unpadded" if bands else "dwconv5x5_shards"
-    return "dwconv3x3_bands" if bands else "dwconv3x3"
+# the engine's kernels by their names on the card, each with the wrappers
+# that launch it (a depthwise kernel's band and flat forms launch one)
+ENGINE_KERNELS = {"qgemm_kernel": ("qgemm",),
+                  "dwconv3x3_kernel": ("dwconv3x3_bands", "dwconv3x3"),
+                  "dwconv5x5_kernel": ("dwconv5x5_bands_unpadded",
+                                       "dwconv5x5_shards"),
+                  "se_pool_kernel": ("se_pool",),
+                  "se_gate_kernel": ("se_gate",),
+                  "band_windows_kernel": ("band_windows",),
+                  "band_take_kernel": ("band_take",)}
+# the CNN kernels' wrappers, each holding its launch counter
+CNN_WRAPPERS = tuple(w for ws in ENGINE_KERNELS.values() for w in ws)
 
 
 def traced_kernels(fn):
@@ -332,119 +313,11 @@ def traced_kernels(fn):
     the last run's result, counts and wanted counts, and the runs made."""
     for tries in range(1, TRACE_TRIES + 1):
         events, _, (out, want) = trace_calls(fn, 1, pad=True)
-        got = {kind: sum(name in e for e, _ in events)
-               for kind, name in ENGINE_KERNELS.items()}
+        got = {name: sum(name in e for e, _ in events)
+               for name in ENGINE_KERNELS}
         if got == want:
             break
     return out, got, want, tries
-
-
-# -- main-path launches -------------------------------------------------------
-
-def path_launches(engine, batch: int) -> list[tuple[str, str, tuple]]:
-    """(kernel, layer, shape) of every kernel launch that one int8 forward
-    of ``batch`` samples makes through ``engine``, in the order of
-    ``CompiledSplitExecutor._forward``.  A qgemm shape is (M, K, N); a band
-    stack's (windows, C, R, W, stride), width unpadded; a flat depthwise
-    layer's (batch, C, H, W, stride, shards), input unpadded, with each
-    worker shard's (c_lo, c_hi, start, stop): one launch over all of them;
-    a pool's (windows, C, R, W, rows), rows a band owns (one band of all
-    H rows a sample where the layer is flat); a gate's (windows, C, R, W,
-    batch); a stage's windows (batch, bands, C, source rows, W, R, pad
-    columns, source layout: ``input`` (the block's, NCHW), ``nchw`` or
-    ``nhwc`` (a qgemm output), NHWC out); a block's output take (batch,
-    bands, C, r, W, H_out, source layout, residual).  A linear layer is
-    one launch over all of its shards' columns.
-    Each main-path run holds the count of these against the kernels of a
-    profiler trace of it."""
-    from repro_torch.core.executor import _kernel_eligible_dwconv
-    plan = engine.plan
-    model = plan.model
-    out = []
-
-    def fc(layer):
-        out.append(("qgemm", layer.name, (batch, math.prod(layer.in_shape),
-                                          layer.out_shape[0])))
-
-    for idxs in plan.block_groups:
-        if plan.splits[idxs[0]].mode == "spatial":
-            # one launch per stage over every band of every sample; a
-            # squeeze-and-excitation cut after the depthwise stage
-            bb = engine._banded_block(idxs)
-            cut = engine._se_cuts.get(tuple(idxs))
-            n_win = batch * len(bb.bands)
-            # the staged windows' source: the block input, then each
-            # stage's output (a qgemm's NHWC, a depthwise or gate stack's
-            # NCHW)
-            src, rows_in = "input", model.layers[bb.stages[0].index].in_shape[1]
-            for st in bb.stages:
-                layer = model.layers[st.index]
-                c_in, _, w_in = layer.in_shape
-                wp = w_in + 2 * layer.padding[1]
-                r = int(st.src_rows.shape[1])
-                (kh, kw), (sh, sw) = layer.kernel, layer.stride
-                pointwise = (layer.kind == "conv" and (kh, kw, sh, sw) ==
-                             (1, 1, 1, 1) and wp == w_in)
-                pad = wp - w_in if layer.kind == "conv" else 0
-                out.append(("band_windows", layer.name,
-                            (batch, len(bb.bands), c_in, rows_in, w_in, r,
-                             pad // 2, src, pointwise)))
-                src = "nhwc" if layer.kind == "conv" else "nchw"
-                rows_in = st.r_out
-                if _kernel_eligible_dwconv(layer):
-                    # the kernel pads the width itself
-                    out.append((dw_wrapper(layer, True), layer.name,
-                                (n_win, c_in, r, w_in, sh)))
-                elif layer.kind == "conv":
-                    m = n_win * ((r - kh) // sh + 1) * ((wp - kw) // sw + 1)
-                    out.append(("qgemm", layer.name,
-                                (m, c_in * kh * kw, layer.out_shape[0])))
-                if cut is not None and st.index == cut.dw:
-                    c, r_o, w_o = layer.out_shape[0], (r - kh) // sh + 1, \
-                        layer.out_shape[2]
-                    geo = engine._band_geometry[cut.dw]
-                    rows = tuple(geo[w].n_rows if geo[w] is not None else 0
-                                 for w in bb.bands)
-                    out.append(("se_pool", model.layers[cut.pool].name,
-                                (n_win, c, r_o, w_o, rows)))
-                    fc(model.layers[cut.fc1])
-                    fc(model.layers[cut.fc2])
-                    out.append(("se_gate", model.layers[cut.gate].name,
-                                (n_win, c, r_o, w_o, batch)))
-            last = model.layers[idxs[-1]]
-            c_o, h_o, w_o = last.out_shape
-            out.append(("band_take", last.name,
-                        (batch, len(bb.bands), c_o, rows_in, w_o, h_o, src,
-                         last.residual_from is not None)))
-            continue
-        # a flat layer: one launch per worker shard (conv), or one over
-        # all of them
-        i = idxs[-1]
-        layer = model.layers[i]
-        if layer.kind == "linear":
-            fc(layer)
-            continue
-        if layer.kind == "avgpool":
-            c, h, w = layer.in_shape
-            out.append(("se_pool", layer.name, (batch, c, h, w, (h,))))
-            continue
-        if layer.kind == "gate":
-            c, h, w = layer.out_shape
-            out.append(("se_gate", layer.name, (batch, c, h, w, batch)))
-            continue
-        c_in, h_in, w_in = layer.in_shape
-        geoms = [g for g in engine._geometry[i] if g is not None]
-        spans = [g.c_hi - g.c_lo + 1 for g in geoms]
-        if layer.kind == "conv":
-            kh, kw = layer.kernel
-            hw = layer.out_shape[1] * layer.out_shape[2]
-            out += [("qgemm", layer.name, (batch * hw, c_in * kh * kw, n))
-                    for n in spans]
-        elif _kernel_eligible_dwconv(layer):
-            shards = tuple((g.c_lo, g.c_hi, g.start, g.stop) for g in geoms)
-            out.append((dw_wrapper(layer, False), layer.name,
-                        (batch, c_in, h_in, w_in, layer.stride[0], shards)))
-    return out
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -845,11 +718,12 @@ def kernel_phase(runs: dict, dev) -> list[dict]:
     """Every distinct (kernel, shape) that the runs launch, plus
     ``OFF_PATH``: held against the plain version and timed.  ``runs`` maps
     each run to every launch it made, (kernel, layer, shape): one forward
-    of an engine plan (``path_launches``), or all requests of a distributed
-    run (``dist_launches``).  Returns one record per distinct launch shape,
-    with its layers, its launches in each run (``per_run``) and the paths
-    that made it (``path``: ``engine``, ``distributed``, both joined by
-    ``+``, or ``none`` for ``OFF_PATH``)."""
+    of an engine plan (its recorded walk: ``engine_launches``), or all
+    requests of a distributed run (``dist_launches``).  Returns one record
+    per distinct launch shape, with its layers, its launches in each run
+    (``per_run``) and the paths that made it (``path``: ``engine``,
+    ``distributed``, ``serving``, joined by ``+``, or ``none`` for
+    ``OFF_PATH``)."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(0)
     # the one-launch depthwise form is held on the plans' own shard tables;
@@ -911,43 +785,60 @@ def per_run(recs, kernel, run) -> dict:
 
 # -- phases 3-5: the main path ------------------------------------------------
 
-def serve_path(mode, model, qmodel, xs, dev, expect, *, label=None,
-               want_ys=None, need=None):
-    """Drive one int8 plan on the card over the batch ``xs``; hold it
-    against the port on the CPU, or against ``want_ys`` where given.
-    ``expect`` is the launches per wrapper that ``path_launches`` counted
-    for one forward of this plan: the run's trace must show exactly those
-    kernels, and no wrapper may launch (the forward replays the graph that
-    the warm-up captured); each wrapper of ``need`` must be among them.
-    Returns the launches of this run (the plan's, by wrapper, so held),
-    the trace's kernels and the ms of a request served alone, under
-    ``label`` (the mode by default)."""
+# the wrappers of a flat depthwise layer: a launch a part of its shard table
+SHARD_WRAPPERS = ("dwconv3x3", "dwconv5x5_shards")
+
+
+def kernel_launches(calls) -> dict:
+    """The engine's kernels on the card (ENGINE_KERNELS) that the recorded
+    ``calls`` launch: one a call, and one a launch of a flat depthwise
+    layer's shard table (``ShardTable.launches``)."""
+    got = dict.fromkeys(ENGINE_KERNELS, 0)
+    for c in calls:
+        kernel = next(k for k, ws in ENGINE_KERNELS.items() if c.name in ws)
+        got[kernel] += (len(c.args[1].launches) if c.name in SHARD_WRAPPERS
+                        else 1)
+    return got
+
+
+def serve_path(mode, model, qmodel, xs, dev, *, label=None, want_ys=None,
+               need=None, ratings=RATINGS):
+    """Drive one int8 plan, ``model``'s ``mode`` split of ``ratings``, on
+    the card over the batch ``xs``; hold it against the port on the CPU,
+    or against ``want_ys`` where given.  A recorded walk of the session's
+    engine (``torch_launches.census``) lists the launches of one forward:
+    with every launch counter at 0, the served run's trace must show
+    exactly those kernels, and no wrapper may launch (the forward replays
+    the graph that the warm-up captured); each wrapper of ``need`` must be
+    among them.  Returns the record under ``label`` (the mode by default;
+    the walk's launches by wrapper, the trace's kernels, the ms of a
+    request served alone) and the walk's calls."""
+    import torch
     from repro_torch.api import Session
     from repro_torch.core import split_model
+    from torch_launches import census
     label = label or mode
-    plan = split_model(model, RATINGS, mode=mode)
+    plan = split_model(model, ratings, mode=mode)
     sess = Session(plan, precision="int8", qmodel=qmodel, device=dev,
                    max_batch=len(xs))
     sess.warmup()
+    calls = census(sess.engine, torch.from_numpy(xs).to(dev))
+    expect = {name: sum(c.name == name for c in calls)
+              for name in CNN_WRAPPERS}
+    want = kernel_launches(calls)
     wrappers = counters()
     for fn in wrappers.values():
         fn.launches = 0
     wrappers["qgemm"].weight_copies = 0
-    want = {kind: sum(n for name, n in expect.items()
-                      if name != "decode_attn" and engine_kind(name) == kind)
-            for kind in ENGINE_KERNELS}
     ys, kernels, _, tries = traced_kernels(
         lambda: (sess.submit_many(xs), want))
     walked = {name: fn.launches for name, fn in wrappers.items()
               if fn.launches}
     if walked:
         raise AssertionError(f"{label} path walked the plan: {walked}")
-    if wrappers["qgemm"].weight_copies:
-        raise AssertionError(f"{label} path copied "
-                             f"{wrappers['qgemm'].weight_copies} weights")
     if kernels != want:
         raise AssertionError(f"{label} path ran {kernels} kernels in each "
-                             f"of {tries} traces, its plan counts {want}")
+                             f"of {tries} traces, its walk launched {want}")
     for name in need or (("qgemm", "dwconv3x3") if mode != "spatial" else
                          ("qgemm", "dwconv3x3_bands", "band_windows",
                           "band_take")):
@@ -978,30 +869,31 @@ def serve_path(mode, model, qmodel, xs, dev, expect, *, label=None,
                       replays=len(sess.buckets) + tries + len(xs)):
         raise AssertionError(f"{label}: graphs {graphs}, buckets "
                              f"{sess.buckets}")
-    rec = dict(mode=label, batch=len(xs), launches=dict(expect),
+    rec = dict(mode=label, batch=len(xs), launches=expect,
                kernels_traced=kernels, traces=tries,
                **{f"bit_exact_vs_{against}": True}, weight_copies=0,
                graphs=graphs,
                ms_request_batch1=statistics.median(one_ms))
     print(f"path {json.dumps(rec)}")
-    return rec
+    return rec, calls
 
 
 def effnet_phase(dev) -> tuple[list[dict], dict]:
     """EfficientNet-B0 at 224x224 (16 squeeze-and-excitation blocks, 9 of
     them with 5x5 depthwise convs, seed-0 weights, calibrated on the CPU)
     through the spatial, kernel and neuron splits of RATINGS at batch
-    EFF_BATCH: each plan's answers equal the unsplit int8 walk in plain
-    torch on the card (``reference_forward(..., qmodel=)``) bit for bit,
-    and a profiler trace of each plan's forward shows exactly the kernels
-    ``path_launches`` lists, ``se_pool``, ``se_gate`` and the 5x5 kernel
-    among them.  Returns the paths' records and their launches (runs
-    ``effnet_<mode>``)."""
+    EFF_BATCH (``serve_path``): each plan's answers equal the unsplit int8
+    walk in plain torch on the card (``reference_forward(..., qmodel=)``)
+    bit for bit, and a profiler trace of each plan's forward shows exactly
+    the kernels its recorded walk launched, ``se_pool``, ``se_gate`` and
+    the 5x5 kernel among them.  Returns the paths' records and their
+    launches (runs ``effnet_<mode>``)."""
     import numpy as np
     from repro_torch.api import Session
-    from repro_torch.core import CompiledSplitExecutor, split_model
+    from repro_torch.core import split_model
     from repro_torch.core.executor import reference_forward
     from repro_torch.models import efficientnet_b0
+    from torch_launches import engine_launches
     model = efficientnet_b0(seed=0)
     kinds = [layer.kind for layer in model.layers]
     n_5x5 = sum(layer.kind == "dwconv" and layer.kernel == (5, 5)
@@ -1020,20 +912,16 @@ def effnet_phase(dev) -> tuple[list[dict], dict]:
                     for x in xs])
     paths, runs = [], {}
     for mode in ("spatial", "kernel", "neuron"):
-        label = f"effnet_{mode}"
-        eng = CompiledSplitExecutor(split_model(model, RATINGS, mode=mode),
-                                    device=dev)
-        runs[label] = path_launches(eng, EFF_BATCH)
-        del eng
-        expect = {k: sum(1 for kk, _, _ in runs[label] if kk == k)
-                  for k in CNN_WRAPPERS}
         bands = mode == "spatial"
         need = ("qgemm", "se_pool", "se_gate",
                 "dwconv3x3_bands" if bands else "dwconv3x3",
                 "dwconv5x5_bands_unpadded" if bands else "dwconv5x5_shards",
                 *(("band_windows", "band_take") if bands else ()))
-        paths.append(serve_path(mode, model, qmodel, xs, dev, expect,
-                                label=label, want_ys=ref, need=need))
+        rec, calls = serve_path(mode, model, qmodel, xs, dev,
+                                label=f"effnet_{mode}", want_ys=ref,
+                                need=need)
+        paths.append(rec)
+        runs[rec["mode"]] = engine_launches(calls)
     return paths, runs
 
 
@@ -1369,9 +1257,10 @@ def serving_phase(model, dev):
     With every launch counter at 0 after the warm-up: SERVE_REQUESTS
     requests a tenant through ``Server.submit`` must equal ``Session.run``
     byte for byte, under a profiler trace whose engine kernels must number
-    what ``path_launches`` lists for the dispatches made, bucket by bucket
-    (``launches``, by wrapper: ``qgemm``, ``dwconv3x3_bands`` (A) and
-    ``dwconv3x3`` (B) must be among them); then each tenant's
+    what a recorded walk of each tenant's engine lists at each bucket, for
+    the dispatches made (``launches``, by wrapper: ``qgemm``,
+    ``dwconv3x3_bands`` (A) and ``dwconv3x3`` (B) must be among them);
+    then each tenant's
     ``saturation_throughput``, open-loop Poisson at 0.4x of it for
     SERVE_STEADY_S (no failure), and B at 2x its saturation for
     SERVE_OVERLOAD_S (typed shedding counted by reason, accepted p99 <=
@@ -1381,10 +1270,12 @@ def serving_phase(model, dev):
     Returns the record and the launches of one forward at each bucket the
     tenants dispatched (for the shape checks)."""
     import numpy as np
+    import torch
     from repro_torch.api import Session
     from repro_torch.core import split_model
     from repro_torch.models import mobilenet_v2
     from repro_torch.serve import run_open_loop, saturation_throughput
+    from torch_launches import census, engine_launches
     t_phase = time.perf_counter()
     model_b = mobilenet_v2(input_hw=SERVE_B_HW, seed=0)
     tenants = {"a": (split_model(model, RATINGS, mode="spatial"), None),
@@ -1403,11 +1294,18 @@ def serving_phase(model, dev):
         want[name] = [oracle.run(x) for x in xs[name]]
     srv = _serving_server(tenants, qmodels, 2, dev)
     engines = {name: srv.session(name).engine for name in tenants}
+    # the launches of one forward at each bucket: a recorded walk of each
+    # tenant's engine, before the counters are set to 0
+    listed_at = {}
+    for name, (plan, _) in tenants.items():
+        shape = plan.model.input_shape
+        listed_at[name] = {b: engine_launches(census(
+            engines[name], torch.zeros((b, *shape), device=dev)))
+            for b in srv.session(name).buckets}
     wrappers = counters()
     for fn in wrappers.values():
         fn.launches = 0
     shed = _ShedCounter(srv)
-    names = CNN_WRAPPERS
 
     def exact():
         """The requests against ``Session.run``; returns the launches the
@@ -1426,14 +1324,13 @@ def serving_phase(model, dev):
                         or got.tobytes() != want[name][i].tobytes()):
                     raise AssertionError(f"serving: tenant {name} request "
                                          f"{i} != Session.run")
-        listed = dict.fromkeys(names, 0)
+        listed = dict.fromkeys(CNN_WRAPPERS, 0)
         for name in tenants:
             for b, n in srv.session(name).stats().per_bucket.items():
-                for k, _, _ in path_launches(engines[name], b):
+                for k, _, _ in listed_at[name][b]:
                     listed[k] += n - before[name].get(b, 0)
-        kinds = {kind: sum(n for k, n in listed.items()
-                           if engine_kind(k) == kind)
-                 for kind in ENGINE_KERNELS}
+        kinds = {kernel: sum(listed[w] for w in ws)
+                 for kernel, ws in ENGINE_KERNELS.items()}
         return listed, kinds
 
     with srv:
@@ -1524,7 +1421,7 @@ def serving_phase(model, dev):
                         failed=q.failed) for name, q in qos.items()},
         seconds=time.perf_counter() - t_phase)
     print(f"serving {json.dumps(rec)}")
-    runs = {f"serving_{name}@{b}": path_launches(engines[name], b)
+    runs = {f"serving_{name}@{b}": listed_at[name][b]
             for name in tenants for b in buckets[name]}
     return rec, runs
 
@@ -1533,56 +1430,41 @@ def dw_many_shards(dev) -> dict:
     """A neuron-mode split of ``mobilenet_v2_smoke`` over MANY_WORKERS
     equal workers: each depthwise layer is a table of MANY_WORKERS shards,
     more than one launch takes, so it runs in ``ceil(n / MAX_SHARDS)``
-    launches.  Each layer's table on the card equals the plain version,
-    and a batch served on the card equals the CPU's, bit for bit, with a
-    profiler trace of it showing exactly those launches (the batch replays
-    the graph that the warm-up captured)."""
+    launches.  Each layer's call of the recorded walk equals its plain
+    version on the engine's own operands (``torch_launches.on_cpu``), and
+    a batch served on the card equals the CPU's, bit for bit, with a
+    profiler trace of it showing exactly those launches (``serve_path``:
+    the batch replays the graph that the warm-up captured)."""
     import numpy as np
     import torch
     from repro_torch.api import Session
     from repro_torch.core import split_model
-    from repro_torch.kernels.dwconv import ops, ref
     from repro_torch.models import mobilenet_v2_smoke
+    from torch_launches import on_cpu
     model = mobilenet_v2_smoke(seed=0)
-    plan = split_model(model, np.ones(MANY_WORKERS), mode="neuron")
+    ratings = np.ones(MANY_WORKERS)
     rng = np.random.default_rng(6)
     calib = [rng.standard_normal(model.input_shape).astype(np.float32)
              for _ in range(2)]
     xs = rng.standard_normal((4, *model.input_shape)).astype(np.float32)
-    cpu = Session(plan, calibration=calib, device="cpu", max_batch=4)
-    gpu = Session(plan, qmodel=cpu.qmodel, device=dev, max_batch=4)
-    gpu.warmup()
-    tables = gpu.engine._constants("int8").shards
-    gen = torch.Generator(device=dev).manual_seed(0)
+    qmodel = Session(split_model(model, ratings, mode="neuron"),
+                     calibration=calib, device="cpu").qmodel
+    path, calls = serve_path("neuron", model, qmodel, xs, dev,
+                             label="dw_many_shards", ratings=ratings)
     layers = []
-    for i, table in sorted(tables.items()):
-        layer = model.layers[i]
-        shape = (4, *layer.in_shape, layer.stride[0])
-        args, kw = _operands("dwconv3x3", shape, gen, dev, int_bias=True)
-        got = ops.dwconv_shards(args[0], table, *args[1:], **kw)
-        exp = ref.dwconv_shards_ref(args[0], table.rows, *args[1:], **kw)
-        if not torch.equal(got, exp):
-            raise AssertionError(f"dw_many_shards {layer.name}: != plain")
-        layers.append(dict(layer=layer.name, shards=len(table.rows),
-                           launches=len(table.launches)))
-    # path_launches lists one depthwise launch a layer: the tables split
-    # them here
-    listed = [engine_kind(k) for k, _, _ in path_launches(gpu.engine, 4)]
-    want = {kind: listed.count(kind) for kind in ENGINE_KERNELS}
-    want["dwconv"] = sum(r["launches"] for r in layers)
-    ys, kernels, _, tries = traced_kernels(
-        lambda: (gpu.submit_many(xs), want))
-    launched = kernels["dwconv"]
-    if kernels != want:
-        raise AssertionError(f"dw_many_shards: {kernels} kernels in each of "
-                             f"{tries} traces, listed {want}, for {layers}")
+    for c in calls:
+        if c.name != "dwconv3x3":
+            continue
+        if not torch.equal(c.fn(*c.args, **c.kwargs).cpu(), on_cpu(c)):
+            raise AssertionError(f"dw_many_shards {c.block}: != plain")
+        layers.append(dict(layer=c.block["first"], shards=len(c.args[1].rows),
+                           launches=len(c.args[1].launches)))
     if not all(r["shards"] == MANY_WORKERS and r["launches"] > 1
                for r in layers) or len(layers) != 5:
         raise AssertionError(f"dw_many_shards: tables {layers}")
-    if not np.array_equal(ys, cpu.submit_many(xs)):
-        raise AssertionError("dw_many_shards: card output != CPU output")
     rec = dict(model="mobilenet_v2_smoke", split="neuron",
-               workers=MANY_WORKERS, layers=layers, launches=launched,
+               workers=MANY_WORKERS, layers=layers,
+               launches=path["kernels_traced"]["dwconv3x3_kernel"],
                tables_bit_exact_vs_plain=True, bit_exact_vs_cpu=True)
     print(f"dw_many_shards {json.dumps(rec)}")
     return rec
@@ -3624,12 +3506,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
     import numpy as np
     from repro_torch.api import Session
-    from repro_torch.core import CompiledSplitExecutor, split_model
+    from repro_torch.core import split_model
     from repro_torch.kernels import backend
     from repro_torch.models import mobilenet_v2_paper
+    from torch_launches import engine_launches
 
     t0 = time.perf_counter()
     backend.build()
@@ -3650,19 +3533,12 @@ def main() -> int:
     qmodel = Session(split_model(model, RATINGS, mode="spatial"),
                      calibration=calib, device="cpu").qmodel
     xs = rng.standard_normal((BATCH, *model.input_shape)).astype(np.float32)
-    modes = ("spatial", "kernel", "neuron")
-    engines = {mode: CompiledSplitExecutor(split_model(model, RATINGS,
-                                                       mode=mode), device=dev)
-               for mode in modes}
-    runs = {mode: path_launches(eng, BATCH) for mode, eng in engines.items()}
-    del engines
-    names = CNN_WRAPPERS
-    paths = []
-    for mode in modes:
-        expect = {k: sum(1 for kk, _, _ in runs[mode] if kk == k)
-                  for k in names}
-        expect["decode_attn"] = 0
-        paths.append(serve_path(mode, model, qmodel, xs, dev, expect))
+    paths, runs = [], {}
+    for mode in ("spatial", "kernel", "neuron"):
+        rec, calls = serve_path(mode, model, qmodel, xs, dev)
+        paths.append(rec)
+        runs[mode] = engine_launches(calls)
+    del calls
     # EfficientNet-B0: the 5x5 and squeeze-and-excitation kernels
     eff_paths, eff_runs = effnet_phase(dev)
     paths += eff_paths
@@ -3693,8 +3569,9 @@ def main() -> int:
              "b1_dw", "b14_dw"}
     engine_recs = [r for r in recs if "engine" in r["path"]]
     for r in recs:
-        if not r["on_path"] or named & set(r["layers"]) and (
-                "spatial" in r["per_run"] or "b1_dw" in r["layers"]) and (
+        layers = {n for lyr in r["layers"] for n in lyr.split("..")}
+        if not r["on_path"] or named & layers and (
+                "spatial" in r["per_run"] or "b1_dw" in layers) and (
                 "engine" in r["path"]):
             print(f"kernel {json.dumps(r)}")
     # each engine shape's schedule beside its device ms, one short line
@@ -3770,19 +3647,19 @@ def main() -> int:
         "qgemm.cu" if name == "qgemm" else
         "se.cu" if name.startswith("se_") else
         "bands.cu" if name.startswith("band_") else "dwconv.cu")
-        for name in names}
+        for name in CNN_WRAPPERS}
     # the reference's kernels each replaces (it has no EfficientNet)
     replaces = {"qgemm": "src/repro/kernels/qgemm/qgemm.py:63",
                 "dwconv3x3_bands": "src/repro/kernels/dwconv/dwconv.py:133",
                 "dwconv3x3": "src/repro/kernels/dwconv/dwconv.py:96"}
     # each kernel's numbers cover the launches of every counted run (the
     # three engine plans of each network, the in-process distributed run):
-    # launches from the plans' lists, held against the traces, each time
-    # the sum over those launches of its per-launch time at the launch's
-    # own shape
+    # launches from the plans' recorded walks, held against the traces,
+    # each time the sum over those launches of its per-launch time at the
+    # launch's own shape
     counted = [p["mode"] for p in paths]
     line = []
-    for name in names:
+    for name in CNN_WRAPPERS:
         fwd = {run: per_run(recs, name, run) for run in counted}
         for p in paths:
             if fwd[p["mode"]]["launches"] != p["launches"].get(name, 0):

@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``repro_torch``, not
-``chip_smoke.py``, not the port's examples (``examples/torch``) and not the
-mesh tests' rank programs (``tests/torch_mesh_ranks.py``, which the card's
-tests import) import JAX or the reference package ``repro``."""
+``chip_smoke.py``, not the port's examples (``examples/torch``), not the
+mesh tests' rank programs (``tests/torch_mesh_ranks.py``) and not the
+recorder of the engine's kernel calls (``tests/torch_launches.py``), both
+of which the card's tests import, import JAX or the reference package
+``repro``."""
 import ast
 import os
 import shutil
@@ -15,7 +17,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
          + sorted((ROOT / "examples" / "torch").glob("*.py"))
-         + [ROOT / "tests" / "torch_mesh_ranks.py"])
+         + [ROOT / "tests" / "torch_mesh_ranks.py",
+            ROOT / "tests" / "torch_launches.py"])
 # the LM slice's modules, named so that a missing one fails here
 LM_SLICE = ("configs/base.py", "configs/__init__.py", "configs/qwen3_14b.py",
             "nn/layers.py", "nn/attention.py", "models/lm.py",
